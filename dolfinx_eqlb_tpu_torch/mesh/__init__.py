@@ -1,0 +1,7 @@
+from .topology import TriMesh  # noqa: F401
+from .generators import (  # noqa: F401
+    unit_square,
+    unit_square_unstructured,
+    rectangle,
+)
+from .refine import refine_facets  # noqa: F401

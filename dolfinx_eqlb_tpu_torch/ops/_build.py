@@ -1,0 +1,124 @@
+"""nvcc build and ctypes loader for the hand-written CUDA kernels in ``csrc/``.
+
+Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) into ONE shared
+library with a plain C interface, at first use, into the package's
+git-ignored ``_build/`` directory.  The library name carries a hash of the
+sources and flags, so an edit rebuilds and a stale library is never loaded.
+Nothing here runs at import time: the CPU test-suite imports every module
+on a machine without nvcc or a card.
+
+Each C entry point launches on the stream it is given, allocates nothing,
+and returns ``cudaGetLastError()`` as an int; :func:`check` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+__all__ = ["library", "build_info", "check"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD = os.path.join(_PKG, "_build")
+_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib = None
+_info: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int64
+# name -> argtypes; one float and one double instantiation of each kernel
+_SIGNATURES = {
+    # (A, b, As scratch, x, D, R, X, stream)
+    "eqlb_lu_solve_bl_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "eqlb_lu_solve_bl_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # (flat, src, out, R, L, ndofs, nfk, stream)
+    "eqlb_combine_gather_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "eqlb_combine_gather_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> list[str]:
+    srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources in {_CSRC}")
+    return srcs
+
+
+def _library_path(srcs: list[str]) -> str:
+    h = hashlib.sha1(" ".join(_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD, f"libeqlbkernels-{h.hexdigest()[:12]}.so")
+
+
+def library():
+    """The loaded kernel library (built on first call); raises if nvcc is
+    missing or the build fails — there is no fallback."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = _sources()
+        path = _library_path(srcs)
+        t0 = time.perf_counter()
+        log = ""
+        built = not os.path.exists(path)
+        if built:
+            os.makedirs(_BUILD, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *_FLAGS, "-o", tmp, *srcs]
+            try:
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                if res.returncode != 0:
+                    raise RuntimeError(
+                        "nvcc failed:\n" + res.stdout + res.stderr)
+                log = res.stdout + res.stderr
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+        lib = ctypes.CDLL(path)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _info.update(path=path, built=built,
+                     seconds=time.perf_counter() - t0, log=log)
+        _lib = lib
+        return _lib
+
+
+def build_info() -> dict:
+    """Path, whether this process compiled it, seconds and the compiler's
+    (ptxas -v) output of the last :func:`library` load."""
+    return dict(_info)
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
