@@ -6,25 +6,39 @@
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc).  It builds the port's CUDA kernels from ``csrc/`` for
 ``sm_90a``, holds each kernel against its plain PyTorch version at the
-main path's shapes, then drives the main path — semi-explicit RT2 flux
-equilibration of random DG data on the crossed ``unit_square(n)``
-(4 n^2 cells; n = 500 is the 1M-cell headline configuration of
-``bench.py``), one field, f32 — and checks that it went through both
-kernels and agrees with the plain route.  Phases, one line each:
+shapes its path gives it, and drives three paths of
+``EqlbEngine.equilibrate`` on random DG data on the crossed
+``unit_square(n)`` (4 n^2 cells; n = 500 is the 1M-cell headline
+configuration of ``bench.py``), RT2, one field, checking that each went
+through its kernels and agrees with the plain route:
 
-  1. the card's name and power limit (``nvidia-smi``);
-  2. the nvcc build and its time;
-  3. the host precompute: mesh, patches, engine tables;
-  4. K1 (batched pivot-free solve) against its plain version, f32 and f64;
-  5. K2 (dof combine) against its plain version, bitwise;
-  6. the main path: first call, 5 strict calls, 3 x 8 pipelined calls,
-     launch counts, output checks, and a stage breakdown;
-  7. f64 parity on ``unit_square(64)``: card (kernels) against the CPU
-     (plain versions).
+* the semi-explicit main path, f32 (K1, K2);
+* the KKT cross-check path, f64 and f32 (K3, K2);
+* the mixed-precision path, f64 data, f32 factorisations with an f64
+  correction and the double-single combine (K1, K4).
 
-Any failure exits non-zero; nothing falls back to the CPU.  The line before
-the last is a JSON object with every kernel's launches, error and times;
-the last line is ``{"ok": true, "device": {...}}``.
+Phases, one line each:
+
+   1. the card's name and power limit (``nvidia-smi``);
+   2. the nvcc build and its time;
+   3. the host precompute: mesh, patches, engine tables;
+   4. K1 (batch-last pivot-free solve) against its plain version;
+   5. K2 (dof combine) against its plain version, bitwise;
+   6. the semi-explicit main path: first call, 5 strict calls, 3 x 8
+      pipelined calls, launch counts, output checks, a stage breakdown;
+   7. f64 parity on ``unit_square(64)``: card (kernels) against the CPU
+      (plain versions);
+   8. K3 (batch-major pivot-free solve) against its plain version;
+   9. the KKT path, f64 and f32, against the f64 plain route;
+  10. K4 (double-single combine) against its plain version, bitwise;
+  11. the mixed-precision path against the f64 plain route, and the
+      native-f64 kernel route on the same tables.
+
+Kernel times are CUDA-event means of single launches, each after a write
+of 256 MB that leaves the 50 MB L2 cold.  Any failure exits non-zero;
+nothing falls back to the CPU.  The line before the last is a JSON object
+with every kernel's launches, error, times and bound; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -42,9 +56,20 @@ K1_SOURCE = "dolfinx_eqlb_tpu_torch/csrc/patch_solve.cu"
 K1_REPLACES = "dolfinx_eqlb_tpu/ops/patch_solve.py:42"
 K2_SOURCE = "dolfinx_eqlb_tpu_torch/csrc/lane_select.cu"
 K2_REPLACES = "dolfinx_eqlb_tpu/ops/lane_select.py:30"
-# max_patches_per_bucket of the main path: the chunk size bench.py's
-# headline configuration uses; it fixes the K1 shapes checked in phase 4.
+K3_SOURCE = K1_SOURCE
+K3_REPLACES = "dolfinx_eqlb_tpu/ops/patch_solve.py:170"
+K4_SOURCE = K2_SOURCE
+K4_REPLACES = "dolfinx_eqlb_tpu/ops/lane_select.py:90"
+# max_patches_per_bucket of the main and KKT paths: the chunk size
+# bench.py's headline configuration uses; it fixes the K1 and K3 shapes
+# checked in phases 4 and 8
 CHUNK = 131072
+# max_patches_per_bucket of the mixed-precision path, bench.py --mixed
+CHUNK_MIXED = 65536
+# H100 SXM: HBM3 bytes/s, and FLOP/s outside the tensor cores (NVIDIA's
+# data sheet; the kernels here use no tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def log(msg: str) -> None:
@@ -55,20 +80,69 @@ def sync(device) -> None:
     torch.cuda.synchronize(device)
 
 
-def time_ms(fn, device, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device time of fn() over reps launches (CUDA events on the
-    current stream), after warm-up."""
-    for _ in range(warmup):
-        fn()
-    sync(device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+def dname(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+class Timer:
+    """Device time of single calls by CUDA events, each call after a write
+    of 256 MB so it starts with a cold L2, as the paths find their
+    operands."""
+
+    def __init__(self, device):
+        self.device = device
+        self.flush = torch.empty(64 * 2**20, dtype=torch.float32,
+                                 device=device)
+
+    def ms(self, fn, reps: int = 10, warmup: int = 2) -> float:
+        for _ in range(warmup):
+            fn()
+        events = []
+        for _ in range(reps):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events.append((start, end))
+        sync(self.device)
+        return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    """Least time (ms) the card could take: the larger of the bytes over
+    the HBM rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lu_flops(D: int, R: int) -> int:
+    """Operations of one pivot-free solve as K1 and K3 do it: per
+    elimination step, a division and the trailing multiply-adds of A and
+    b; per back-substitution step, R dot products and divisions."""
+    fwd = sum(m * (1 + 2 * m + 2 * R) for m in range(D))
+    back = sum(R * (2 * m + 1) for m in range(D))
+    return fwd + back
+
+
+def lu_bound(D: int, R: int, X: int, dtype) -> tuple[float, str]:
+    size = torch.tensor([], dtype=dtype).element_size()
+    return bound((D * D + 2 * D * R) * X * size, lu_flops(D, R) * X, dtype)
+
+
+def combine_bound(src: np.ndarray, nfk: int, R: int, dtype,
+                  flops_per_dof: tuple[int, int]) -> tuple[float, str]:
+    """Bytes of the combine: the index entries this run reads (2 per facet
+    dof, 3 per cell dof), each contributor value once, each output once;
+    ``flops_per_dof`` (facet, cell)."""
+    ndofs = src.shape[0]
+    ncell = ndofs - nfk
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * nfk + 3 * ncell) * (4 + R * size) + R * ndofs * size
+    flops = R * (flops_per_dof[0] * nfk + flops_per_dof[1] * ncell)
+    return bound(nbytes, flops, dtype)
 
 
 def card_line() -> str:
@@ -98,6 +172,67 @@ def make_data(msh, k: int, n_rhs: int, seed: int, np_dtype, kinds=False):
             bv.astype(np_dtype))
 
 
+def kernel_wrappers() -> dict:
+    """The kernels' wrappers by id; each counts its launches."""
+    from dolfinx_eqlb_tpu_torch.ops.lane_select import (
+        combine_gather, ds_combine_gather,
+    )
+    from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
+        batched_kkt_solve, batched_kkt_solve_bl,
+    )
+
+    return {"K1": batched_kkt_solve_bl, "K2": combine_gather,
+            "K3": batched_kkt_solve, "K4": ds_combine_gather}
+
+
+def reset_launches():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def drive(call, device, strict: int = 5, rounds: int = 3,
+          per_round: int = 8):
+    """First call, ``strict`` calls with a sync after each (host clock),
+    ``rounds`` of ``per_round`` calls in flight; returns the last output
+    and the timings."""
+    res = {}
+    t0 = time.perf_counter()
+    x = call()
+    sync(device)
+    res["first_call_s"] = time.perf_counter() - t0
+    times = []
+    for _ in range(strict):
+        t0 = time.perf_counter()
+        x = call()
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    pipelined = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(per_round):
+            x = call()
+        sync(device)
+        pipelined.append((time.perf_counter() - t0) * 1e3 / per_round)
+    res["strict_ms"] = times
+    res["pipelined_ms"] = pipelined
+    res["strict_ms_median"] = float(np.median(times))
+    res["pipelined_ms_min"] = min(pipelined)
+    return x, res
+
+
+def spd_batch(X, D, R, dtype, device, gen):
+    """Random SPD systems, batch-major: A (X, D, D), b (X, D, R)."""
+    B = torch.randn((X, D, D), generator=gen, device=device, dtype=dtype)
+    A = B @ B.transpose(1, 2) + D * torch.eye(D, dtype=dtype, device=device)
+    del B
+    return A, torch.randn((X, D, R), generator=gen, device=device,
+                          dtype=dtype)
+
+
 def solve_shapes(engine):
     """(D, R, X) of every K1 call the main path makes: the interior
     buckets' inverse builds (R = D) and the boundary buckets' masked
@@ -113,8 +248,9 @@ def solve_shapes(engine):
     return shapes
 
 
-def phase_k1(shapes, device):
-    """K1 against its plain version on random SPD batches."""
+def phase_k1(shapes, device, timer):
+    """K1 against its plain version on random SPD batches; the library
+    call is torch.linalg.solve on the same batch."""
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
         batched_kkt_solve_bl, batched_kkt_solve_bl_plain,
     )
@@ -123,59 +259,82 @@ def phase_k1(shapes, device):
     rows = []
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
         for D, R, X in shapes:
-            B = torch.randn((X, D, D), generator=gen, device=device,
-                            dtype=dtype)
-            eye = torch.eye(D, dtype=dtype, device=device)
-            A = (B @ B.transpose(1, 2) + D * eye).permute(1, 2, 0).contiguous()
-            b = torch.randn((D, R, X), generator=gen, device=device,
-                            dtype=dtype)
+            Abm, bbm = spd_batch(X, D, R, dtype, device, gen)
+            A = Abm.permute(1, 2, 0).contiguous()
+            b = bbm.permute(1, 2, 0).contiguous()
             x = batched_kkt_solve_bl(A, b)
             xp = batched_kkt_solve_bl_plain(A, b)
             sync(device)
             err = float((x - xp).abs().max())
             rel = err / float(xp.abs().max())
-            ms = time_ms(lambda: batched_kkt_solve_bl(A, b), device)
-            plain_ms = time_ms(lambda: batched_kkt_solve_bl_plain(A, b),
-                               device, reps=3, warmup=1)
+            ms = timer.ms(lambda: batched_kkt_solve_bl(A, b))
+            plain_ms = timer.ms(lambda: batched_kkt_solve_bl_plain(A, b),
+                                reps=3, warmup=1)
+            library_ms = timer.ms(
+                lambda: torch.linalg.solve(A.permute(2, 0, 1),
+                                           b.permute(2, 0, 1)),
+                reps=3, warmup=1)
+            bound_ms, bound_by = lu_bound(D, R, X, dtype)
             ok = bool(torch.isfinite(x).all()) and rel <= tol
-            rows.append(dict(dtype=str(dtype).split(".")[-1], D=D, R=R, X=X,
+            rows.append(dict(dtype=dname(dtype), D=D, R=R, X=X,
                              max_abs_err=err, max_rel_err=rel, ms=ms,
-                             plain_ms=plain_ms, ok=ok))
-            log(f"    K1 {rows[-1]['dtype']} D={D} R={R} X={X}: "
-                f"max_rel_err={rel:.3e} (limit {tol:g}) "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, ok=ok))
+            log(f"    K1 {dname(dtype)} D={D} R={R} X={X}: "
+                f"max_rel_err={rel:.3e} (limit {tol:g}) kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, torch.linalg.solve "
+                f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
                 f"{'' if ok else '  FAILED'}")
+            del A, b, Abm, bbm, x, xp
     return rows
 
 
-def phase_k2(engine, device):
-    """K2 against its plain version on the engine's combine tables."""
+def phase_combine(name, src_np, nfk, L, dtypes, device, timer, seed):
+    """K2 (``name="K2"``) or K4 (``"K4"``) against its plain version on a
+    random flat vector over the engine's combine tables; K4 also against
+    K2 in f64."""
     from dolfinx_eqlb_tpu_torch.ops.lane_select import (
-        combine_gather, combine_gather_plain,
+        combine_gather, combine_gather_plain, ds_combine_gather,
+        ds_combine_gather_plain,
     )
 
-    src = torch.as_tensor(engine._src, device=device)
-    nfk = engine._nfk
-    gen = torch.Generator(device=device).manual_seed(1)
+    kernel, plain = ((combine_gather, combine_gather_plain) if name == "K2"
+                     else (ds_combine_gather, ds_combine_gather_plain))
+    # operations per facet / cell dof: K2 adds; K4 splits (3 each), 2Sum
+    # (6), the lo sum (2), the reconstruction (1) and the third term (5)
+    flops_per_dof = (1, 2) if name == "K2" else (15, 20)
+    src = torch.as_tensor(src_np, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
     rows = []
-    for dtype in (torch.float32, torch.float64):
-        flat = torch.randn((1, engine._flat_len + 1), generator=gen,
-                           device=device, dtype=dtype)
+    for dtype in dtypes:
+        flat = torch.randn((1, L), generator=gen, device=device, dtype=dtype)
         flat[:, -1] = 0.0  # the zero pad slot
-        out = combine_gather(flat, src, nfk)
-        ref = combine_gather_plain(flat, src, nfk)
+        out = kernel(flat, src, nfk)
+        ref = plain(flat, src, nfk)
         sync(device)
         equal = bool(torch.equal(out, ref))
         err = float((out - ref).abs().max())
-        ms = time_ms(lambda: combine_gather(flat, src, nfk), device)
-        plain_ms = time_ms(lambda: combine_gather_plain(flat, src, nfk),
-                           device)
-        rows.append(dict(dtype=str(dtype).split(".")[-1], ndofs=src.shape[0],
-                         L=flat.shape[1], bitwise=equal, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms))
-        log(f"    K2 {rows[-1]['dtype']} ndofs={src.shape[0]} "
-            f"L={flat.shape[1]}: bitwise_equal={equal} kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms{'' if equal else '  FAILED'}")
+        row = dict(dtype=dname(dtype), ndofs=src.shape[0], L=L,
+                   bitwise=equal, max_abs_err=err)
+        if name == "K4":
+            x64 = combine_gather(flat, src, nfk)
+            scale = float(x64.abs().max())
+            row["vs_K2_f64"] = float((out - x64).abs().max())
+            row["vs_K2_limit"] = 1e-12 * scale
+            row["ok"] = equal and row["vs_K2_f64"] <= row["vs_K2_limit"]
+        else:
+            row["ok"] = equal
+        row["ms"] = timer.ms(lambda: kernel(flat, src, nfk))
+        row["plain_ms"] = timer.ms(lambda: plain(flat, src, nfk))
+        row["bound_ms"], row["bound_by"] = combine_bound(
+            src_np, nfk, 1, dtype, flops_per_dof)
+        rows.append(row)
+        extra = (f", vs K2 {row['vs_K2_f64']:.3e} (limit "
+                 f"{row['vs_K2_limit']:.3e})" if name == "K4" else "")
+        log(f"    {name} {row['dtype']} ndofs={src.shape[0]} L={L}: "
+            f"bitwise_equal={equal}{extra}; kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}){'' if row['ok'] else '  FAILED'}")
     return rows
 
 
@@ -185,10 +344,7 @@ def phase_main(engine, data, device, profile=False):
     from dolfinx_eqlb_tpu_torch.eqlb.semiexplicit import (
         solve_bucket_semiexplicit,
     )
-    from dolfinx_eqlb_tpu_torch.ops.lane_select import (
-        combine_gather, combine_gather_plain,
-    )
-    from dolfinx_eqlb_tpu_torch.ops.patch_solve import batched_kkt_solve_bl
+    from dolfinx_eqlb_tpu_torch.ops.lane_select import combine_gather_plain
 
     d_proj, d_rhs, facet_kind, bvals = data
     npatches = sum(b.npatches for b in engine.buckets.values())
@@ -204,35 +360,14 @@ def phase_main(engine, data, device, profile=False):
     def call():
         return engine.equilibrate(dpT, drT, fk, bv, transposed_inputs=True)
 
-    batched_kkt_solve_bl.launches = 0
-    combine_gather.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     engine._device_tables()
     sync(device)
     res["geometry_caches_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    x = call()
-    sync(device)
-    res["first_call_s"] = time.perf_counter() - t0
-    strict = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        x = call()
-        sync(device)
-        strict.append((time.perf_counter() - t0) * 1e3)
-    pipelined = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(8):
-            x = call()
-        sync(device)
-        pipelined.append((time.perf_counter() - t0) * 1e3 / 8)
-    res["launches"] = {"K1": batched_kkt_solve_bl.launches,
-                       "K2": combine_gather.launches}
-    res["strict_ms"] = strict
-    res["pipelined_ms"] = pipelined
-    res["strict_ms_median"] = float(np.median(strict))
-    res["pipelined_ms_min"] = min(pipelined)
+    x, timing = drive(call, device)
+    res["launches"] = read_launches()
+    res.update(timing)
     res["patches"] = npatches
     res["patches_per_s_strict"] = npatches / (res["strict_ms_median"] / 1e3)
     res["patches_per_s_pipelined"] = npatches / (res["pipelined_ms_min"] / 1e3)
@@ -246,9 +381,8 @@ def phase_main(engine, data, device, profile=False):
         engine.V, engine.buckets, engine.tables, engine.se_static, engine.ref,
         dtype=engine.dtype, device=device)
     ref.solver = "torch"
-    _, ref_refd = ref._device_tables()
     x_ref = combine_gather_plain(ref._bucket_solutions(dpT, drT, fk, bv),
-                                 ref_refd["src"], ref._nfk)
+                                 ref._combine_src(), ref._nfk)
     scale = float(x_ref.abs().max())
     res["max_abs_err_vs_plain"] = float((x - x_ref).abs().max())
     res["err_limit"] = 1e-4 * scale
@@ -354,6 +488,212 @@ def phase_f64_parity(device, n: int = 64):
                 ok=bool(torch.isfinite(x_card).all()) and err <= limit)
 
 
+def kkt_shapes(engine):
+    """(D, R, X) of every K3 call the KKT path makes with one RHS."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import k3_takes
+
+    shapes = []
+    for key in sorted(engine.buckets):
+        D, _ = engine.kkt_size(key)
+        shape = (D, 1, engine.tables[key]["gdofs"].shape[0])
+        if k3_takes(D) and shape not in shapes:
+            shapes.append(shape)
+    return shapes
+
+
+def phase_k3(shapes, device, timer):
+    """K3 against its plain version on random SPD batch-major systems; the
+    library call is torch.linalg.solve on the same batch."""
+    from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
+        batched_kkt_solve, batched_kkt_solve_plain,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    rows = []
+    for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
+        for D, R, X in shapes:
+            A, b = spd_batch(X, D, R, dtype, device, gen)
+            x = batched_kkt_solve(A, b)
+            xp = batched_kkt_solve_plain(A, b)
+            sync(device)
+            err = float((x - xp).abs().max())
+            rel = err / float(xp.abs().max())
+            del xp
+            ms = timer.ms(lambda: batched_kkt_solve(A, b), reps=5)
+            plain_ms = timer.ms(lambda: batched_kkt_solve_plain(A, b),
+                                reps=2, warmup=1)
+            library_ms = timer.ms(lambda: torch.linalg.solve(A, b), reps=2,
+                                  warmup=1)
+            bound_ms, bound_by = lu_bound(D, R, X, dtype)
+            ok = bool(torch.isfinite(x).all()) and rel <= tol
+            rows.append(dict(dtype=dname(dtype), D=D, R=R, X=X,
+                             max_abs_err=err, max_rel_err=rel, ms=ms,
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, ok=ok))
+            log(f"    K3 {dname(dtype)} D={D} R={R} X={X}: "
+                f"max_rel_err={rel:.3e} (limit {tol:g}) kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, torch.linalg.solve "
+                f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+                f"{'' if ok else '  FAILED'}")
+            del A, b, x
+    return rows
+
+
+def kkt_stages(eng, args, device) -> dict:
+    """Where a KKT call's time goes: the assembly and the solves of every
+    bucket, host clock around synchronised stages, best of 2 calls."""
+    dp, dr, fk, bv = args
+    kdev, krefd = eng._kkt_tables()
+    best = {}
+    for _ in range(2):
+        stages = {"assembly_ms": 0.0, "solve_ms": 0.0}
+        for key in sorted(eng.buckets):
+            t0 = time.perf_counter()
+            Ar, br, _ = eng._assemble_bucket(key, dp, dr, fk, bv, kdev[key],
+                                             krefd)
+            sync(device)
+            t1 = time.perf_counter()
+            eng._dense_solve(Ar, br[..., None])
+            sync(device)
+            stages["assembly_ms"] += (t1 - t0) * 1e3
+            stages["solve_ms"] += (time.perf_counter() - t1) * 1e3
+            del Ar, br
+        best = {name: min(val, best.get(name, val))
+                for name, val in stages.items()}
+    return best
+
+
+def phase_kkt(eng64, msh, device):
+    """The KKT path at full width, f64 and f32 (K3 and K2), each against
+    the f64 plain route: solver "torch" and the plain combine."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
+    from dolfinx_eqlb_tpu_torch.ops.lane_select import combine_gather_plain
+
+    def engine(dtype, solver):
+        eng = EqlbEngine.from_host_tables(
+            eng64.V, eng64.buckets, eng64.tables, eng64.se_static, eng64.ref,
+            dtype=dtype, device=device)
+        eng.mode = "kkt"
+        eng.solver = solver
+        return eng
+
+    dp, dr, fk, bv = make_data(msh, eng64.k, 1, seed=4, np_dtype=np.float64)
+    fk = torch.as_tensor(fk, device=device)
+    ref = engine(torch.float64, "torch")
+    dp64 = torch.as_tensor(dp, device=device)
+    dr64 = torch.as_tensor(dr, device=device)
+    bv64 = torch.as_tensor(bv, device=device)
+    x_ref = combine_gather_plain(
+        ref._bucket_solutions_kkt(dp64, dr64, fk, bv64), ref._combine_src(),
+        ref._nfk)
+    del ref
+    scale = float(x_ref.abs().max())
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        eng = engine(dtype, "kernel")
+        args = [t.to(dtype) for t in (dp64, dr64)] + [fk, bv64.to(dtype)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        x, res = drive(lambda: eng.equilibrate(*args), device, strict=3,
+                       rounds=1, per_round=4)
+        res["launches"] = read_launches()
+        res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        res["stages_ms"] = kkt_stages(eng, args, device)
+        res["finite"] = bool(torch.isfinite(x).all())
+        res["shape_ok"] = tuple(x.shape) == tuple(x_ref.shape)
+        res["max_abs_err_vs_plain_f64"] = float(
+            (x.double() - x_ref).abs().max())
+        res["err_limit"] = (1e-11 * max(1.0, scale)
+                            if dtype == torch.float64 else 1e-3 * scale)
+        res["ok"] = (res["finite"] and res["shape_ok"]
+                     and res["max_abs_err_vs_plain_f64"] <= res["err_limit"])
+        out[dname(dtype)] = res
+        del eng, x
+    return out
+
+
+def phase_mixed(V, buckets, msh, device):
+    """The mixed-precision path at full width (bench.py --mixed: f64 data,
+    chunk 65536): solver "kernel_mixed" (K1 in f32 plus an f64
+    correction), combine "ds" (K4), against the f64 plain route; then the
+    native-f64 kernel route and "kernel_mixed" with the K2 combine on the
+    same host tables, for their times."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
+    from dolfinx_eqlb_tpu_torch.ops.lane_select import combine_gather_plain
+
+    t0 = time.perf_counter()
+    engm = EqlbEngine(V, buckets, dtype=torch.float64, device=device,
+                      max_patches_per_bucket=CHUNK_MIXED)
+    res = {"engine_tables_s": time.perf_counter() - t0}
+    dp, dr, fk, bv = make_data(msh, engm.k, 1, seed=5, np_dtype=np.float64)
+    dpT, drT = engm.put_transposed(dp, dr)
+    fk = torch.as_tensor(fk, device=device)
+    bv = torch.as_tensor(bv, device=device)
+
+    host = (engm.V, engm.buckets, engm.tables, engm.se_static, engm.ref)
+
+    def engine(solver, combine):
+        eng = EqlbEngine.from_host_tables(*host, dtype=torch.float64,
+                                          device=device)
+        eng.solver, eng.combine = solver, combine
+        return eng
+
+    ref = engine("torch", "gather")
+    x_ref = combine_gather_plain(ref._bucket_solutions(dpT, drT, fk, bv),
+                                 ref._combine_src(), ref._nfk)
+    del ref
+    engm.solver, engm.combine = "kernel_mixed", "ds"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    engm._device_tables()
+    sync(device)
+    res["geometry_caches_s"] = time.perf_counter() - t0
+    x, timing = drive(
+        lambda: engm.equilibrate(dpT, drT, fk, bv, transposed_inputs=True),
+        device)
+    res["launches"] = read_launches()
+    res.update(timing)
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    res["chunks"] = len(engm.buckets)
+    res["finite"] = bool(torch.isfinite(x).all())
+    res["shape_ok"] = tuple(x.shape) == tuple(x_ref.shape)
+    res["max_abs_err_vs_plain_f64"] = float((x - x_ref).abs().max())
+    res["err_limit"] = 1e-9 * max(1.0, float(x_ref.abs().max()))
+    res["ok"] = (res["finite"] and res["shape_ok"]
+                 and res["max_abs_err_vs_plain_f64"] <= res["err_limit"])
+    del engm, x
+    for solver, combine in (("kernel", "gather"), ("kernel_mixed", "gather")):
+        eng = engine(solver, combine)
+        torch.cuda.empty_cache()
+        eng._device_tables()
+        x, timing = drive(
+            lambda: eng.equilibrate(dpT, drT, fk, bv, transposed_inputs=True),
+            device)
+        timing["max_abs_err_vs_plain_f64"] = float((x - x_ref).abs().max())
+        res[f"route_{solver}_{combine}"] = {
+            key: timing[key] for key in ("strict_ms_median",
+                                         "pipelined_ms_min",
+                                         "max_abs_err_vs_plain_f64")}
+        del eng, x
+    return res
+
+
+def kernel_entry(name, source, replaces, launches, row, errs):
+    """One entry of the "kernels" line from a phase row."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(errs), "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms"),
+            "dtype": row["dtype"],
+            "shape": {key: row[key] for key in ("D", "R", "X", "ndofs", "L")
+                      if key in row}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=500,
@@ -377,20 +717,22 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     failures = []
+    nph = 11
 
     card = card_line()
     log(card)
-    log(f"[1/7] card: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/{nph}] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
 
     _build.library()
     info = _build.build_info()
-    log(f"[2/7] nvcc build: {info['seconds']:.2f} s "
+    log(f"[2/{nph}] nvcc build: {info['seconds']:.2f} s "
         f"({'compiled' if info['built'] else 'cached'}) -> {info['path']}")
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line:
             log(f"    ptxas: {line.strip()}")
+    timer = Timer(device)
 
     k = 2
     t0 = time.perf_counter()
@@ -408,26 +750,27 @@ def main(argv=None) -> int:
     data = make_data(msh, k, 1, seed=0, np_dtype=np.float32)
     t_data = time.perf_counter() - t0
     npatches = sum(b.npatches for b in buckets.values())
-    log(f"[3/7] host precompute: mesh {msh.num_cells} cells {t_mesh:.2f} s; "
-        f"patches {npatches} in {len(buckets)} buckets {t_patches:.2f} s; "
-        f"engine tables ({len(engine.buckets)} chunks, {V.ndofs} dofs) "
-        f"{t_tables:.2f} s; data {t_data:.2f} s; native library loaded: "
-        f"{native.available()}")
+    log(f"[3/{nph}] host precompute: mesh {msh.num_cells} cells "
+        f"{t_mesh:.2f} s; patches {npatches} in {len(buckets)} buckets "
+        f"{t_patches:.2f} s; engine tables ({len(engine.buckets)} chunks, "
+        f"{V.ndofs} dofs) {t_tables:.2f} s; data {t_data:.2f} s; native "
+        f"library loaded: {native.available()}")
 
     shapes = solve_shapes(engine)
-    log(f"[4/7] K1 vs plain at the main path's shapes {shapes}:")
-    k1 = phase_k1(shapes, device)
+    log(f"[4/{nph}] K1 vs plain at the main path's shapes {shapes}:")
+    k1 = phase_k1(shapes, device, timer)
     if not all(r["ok"] for r in k1):
         failures.append("K1 disagrees with its plain version")
 
-    log("[5/7] K2 vs plain on the engine's combine tables:")
-    k2 = phase_k2(engine, device)
-    if not all(r["bitwise"] for r in k2):
+    log(f"[5/{nph}] K2 vs plain on the engine's combine tables:")
+    k2 = phase_combine("K2", engine._src, engine._nfk, engine._flat_len + 1,
+                       (torch.float32, torch.float64), device, timer, seed=1)
+    if not all(r["ok"] for r in k2):
         failures.append("K2 is not bitwise equal to its plain version")
 
     x, main_res = phase_main(engine, data, device, profile=args.profile)
     launches = main_res["launches"]
-    log(f"[6/7] main path unit_square({args.n}) RT2 f32 1 field, "
+    log(f"[6/{nph}] main path unit_square({args.n}) RT2 f32 1 field, "
         f"{main_res['patches']} patches: first call "
         f"{main_res['first_call_s']:.3f} s (geometry caches "
         f"{main_res['geometry_caches_s']:.3f} s before it); strict "
@@ -453,34 +796,105 @@ def main(argv=None) -> int:
         failures.append("main path output has a wrong shape or non-finite")
     if not main_res["max_abs_err_vs_plain"] <= main_res["err_limit"]:
         failures.append("main path disagrees with the plain route")
+    del x, engine
+    torch.cuda.empty_cache()
 
     par = phase_f64_parity(device)
-    log(f"[7/7] f64 parity unit_square({par['n']}) ({par['cells']} cells), "
-        f"card vs CPU: max_abs_err {par['max_abs_err']:.3e} "
+    log(f"[7/{nph}] f64 parity unit_square({par['n']}) ({par['cells']} "
+        f"cells), card vs CPU: max_abs_err {par['max_abs_err']:.3e} "
         f"(limit {par['limit']:.3e}){'' if par['ok'] else '  FAILED'}")
     if not par["ok"]:
         failures.append("f64 card result disagrees with the CPU")
+
+    t0 = time.perf_counter()
+    eng64 = EqlbEngine(V, buckets, dtype=torch.float64, device=device,
+                       max_patches_per_bucket=CHUNK)
+    t_tables64 = time.perf_counter() - t0
+    shapes3 = kkt_shapes(eng64)
+    log(f"[8/{nph}] K3 vs plain at the KKT path's shapes {shapes3} "
+        f"(f64 engine tables {t_tables64:.2f} s):")
+    k3 = phase_k3(shapes3, device, timer)
+    if not all(r["ok"] for r in k3):
+        failures.append("K3 disagrees with its plain version")
+    torch.cuda.empty_cache()
+
+    kkt = phase_kkt(eng64, msh, device)
+    for dt, r in kkt.items():
+        log(f"[9/{nph}] KKT path unit_square({args.n}) RT2 {dt} 1 field: "
+            f"first call {r['first_call_s']:.3f} s; strict "
+            f"{r['strict_ms_median']:.3f} ms median, pipelined "
+            f"{r['pipelined_ms_min']:.3f} ms ({r['stages_ms']}); peak "
+            f"{r['peak_mem_gib']:.2f} GiB; launches {r['launches']}; "
+            f"max|x - plain f64| "
+            f"{r['max_abs_err_vs_plain_f64']:.3e} (limit "
+            f"{r['err_limit']:.3e}){'' if r['ok'] else '  FAILED'}")
+        log("    detail: " + json.dumps(r))
+        if not r["ok"]:
+            failures.append(f"KKT path {dt} disagrees with the plain route")
+        if r["launches"]["K3"] <= 0 or r["launches"]["K2"] <= 0:
+            failures.append(f"KKT path {dt} skipped a kernel: "
+                            f"{r['launches']}")
+    torch.cuda.empty_cache()
+
+    log(f"[10/{nph}] K4 vs plain on the f64 engine's combine tables:")
+    k4 = phase_combine("K4", eng64._src, eng64._nfk, eng64._flat_len + 1,
+                       (torch.float64,), device, timer, seed=6)
+    if not all(r["ok"] for r in k4):
+        failures.append("K4 is not bitwise equal to its plain version or "
+                        "strays from K2")
+    del eng64
+    torch.cuda.empty_cache()
+
+    mixed = phase_mixed(V, buckets, msh, device)
+    log(f"[11/{nph}] mixed path unit_square({args.n}) RT2 f64 1 field, "
+        f"kernel_mixed + ds, {mixed['chunks']} chunks: first call "
+        f"{mixed['first_call_s']:.3f} s (geometry caches "
+        f"{mixed['geometry_caches_s']:.3f} s); strict "
+        f"{mixed['strict_ms_median']:.3f} ms median, pipelined "
+        f"{mixed['pipelined_ms_min']:.3f} ms; launches {mixed['launches']}; "
+        f"max|x - plain f64| {mixed['max_abs_err_vs_plain_f64']:.3e} (limit "
+        f"{mixed['err_limit']:.3e}); native f64 kernel + gather "
+        f"{mixed['route_kernel_gather']}; kernel_mixed + gather "
+        f"{mixed['route_kernel_mixed_gather']}"
+        f"{'' if mixed['ok'] else '  FAILED'}")
+    log("    detail: " + json.dumps(mixed))
+    if not mixed["ok"]:
+        failures.append("mixed path disagrees with the f64 plain route")
+    if mixed["launches"]["K1"] <= 0 or mixed["launches"]["K4"] <= 0:
+        failures.append(f"mixed path skipped a kernel: {mixed['launches']}")
 
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
         return 1
 
-    k1_main = max((r for r in k1 if r["dtype"] == "float32"),
-                  key=lambda r: r["D"] * r["D"] * r["R"] * r["X"])
-    k2_main = next(r for r in k2 if r["dtype"] == "float32")
-    print(json.dumps({"kernels": [
-        {"name": "K1 batched_kkt_solve_bl", "route": "cuda",
-         "source": K1_SOURCE, "replaces": K1_REPLACES,
-         "launches": launches["K1"],
-         "max_abs_err": max(r["max_abs_err"] for r in k1),
-         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"]},
-        {"name": "K2 combine_gather", "route": "cuda",
-         "source": K2_SOURCE, "replaces": K2_REPLACES,
-         "launches": launches["K2"],
-         "max_abs_err": max(r["max_abs_err"] for r in k2),
-         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"]},
-    ]}), flush=True)
+    paths = {"semiexplicit_f32": launches, "kkt_f64": kkt["float64"]["launches"],
+             "kkt_f32": kkt["float32"]["launches"], "mixed_f64": mixed["launches"]}
+
+    def total(kname):
+        return sum(p[kname] for p in paths.values())
+
+    def biggest(rows, dtype):
+        return max((r for r in rows if r["dtype"] == dtype),
+                   key=lambda r: r["D"] * r["D"] * r["X"])
+
+    entries = [
+        kernel_entry("K1 batched_kkt_solve_bl", K1_SOURCE, K1_REPLACES,
+                     total("K1"), biggest(k1, "float32"),
+                     [r["max_abs_err"] for r in k1]),
+        kernel_entry("K2 combine_gather", K2_SOURCE, K2_REPLACES,
+                     total("K2"), next(r for r in k2 if r["dtype"] == "float32"),
+                     [r["max_abs_err"] for r in k2]),
+        kernel_entry("K3 batched_kkt_solve", K3_SOURCE, K3_REPLACES,
+                     total("K3"), biggest(k3, "float64"),
+                     [r["max_abs_err"] for r in k3]),
+        kernel_entry("K4 ds_combine_gather", K4_SOURCE, K4_REPLACES,
+                     total("K4"), k4[0], [r["max_abs_err"] for r in k4]),
+    ]
+    for entry in entries:
+        entry["launches_by_path"] = {
+            name: p[entry["name"][:2]] for name, p in paths.items()}
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

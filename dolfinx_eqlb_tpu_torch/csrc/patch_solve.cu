@@ -71,6 +71,107 @@ int launch(const void* A, const void* b, void* As, void* x, int64_t D,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3: the same pivot-free solve, batch-major, one thread block per system.
+//
+// Replaces the Pallas TPU kernel's batch-major entry
+// dolfinx_eqlb_tpu/ops/patch_solve.py::batched_kkt_solve (the moveaxis into
+// _kernel), the solve of the KKT mode's full patch systems: A (N, D, D) and
+// b (N, D, R), row-major per system, D = 16-56 at RT2 and up to 110.
+//
+// What bounds it on the card: at D = 56 a system is ~3,100 values and
+// ~D^3/3 = 58,000 multiply-adds, so one thread per system (K1's design)
+// would stream every update through L2.  Design: the block stages the
+// augmented system [A | b] (D x (D + R), row stride W = D + R) once in
+// dynamic shared memory with coalesced loads and eliminates it there.  Each
+// elimination step j first turns column j below the pivot into the
+// multipliers, then the block updates the trailing (i > j, c > j) entries of
+// [A | b] -- the forward substitution rides along in the b columns -- with a
+// warp on consecutive columns of a row (no bank conflicts; row j and the
+// multiplier are broadcasts).  Back substitution sweeps the columns from the
+// last: divide x_j by its pivot, then subtract its column from the rows
+// above.  x is written once.  Shared memory is D (D + R) sizeof(T): 12.8 KB
+// at D = 56 in f32, 97.7 KB at D = 110 in f64; the wrapper refuses more
+// than the block limit.  Packing several small systems into one block,
+// wgmma and TMA are later work.
+
+constexpr int kBmWarps = 4;  // blockDim = (32, kBmWarps)
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kBmWarps)
+lu_solve_bm_kernel(const T* __restrict__ A, const T* __restrict__ b,
+                   T* __restrict__ x, int D, int R) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* S = reinterpret_cast<T*>(smem);
+  const int W = D + R;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * 32 + tx;
+  constexpr int nthr = 32 * kBmWarps;
+  const int64_t p = blockIdx.x;
+  const T* Ap = A + p * D * D;
+  const T* bp = b + p * D * R;
+
+  for (int e = tid; e < D * D; e += nthr) {
+    const int i = e / D;
+    S[i * W + (e - i * D)] = Ap[e];
+  }
+  for (int e = tid; e < D * R; e += nthr) {
+    const int i = e / R;
+    S[i * W + D + (e - i * R)] = bp[e];
+  }
+  __syncthreads();
+
+  // column elimination fused with forward substitution
+  for (int j = 0; j < D; ++j) {
+    const T piv = S[j * W + j];
+    for (int i = j + 1 + tid; i < D; i += nthr) S[i * W + j] /= piv;
+    __syncthreads();
+    for (int i = j + 1 + ty; i < D; i += kBmWarps) {
+      const T l = S[i * W + j];
+      for (int c = j + 1 + tx; c < W; c += 32)
+        S[i * W + c] -= l * S[j * W + c];
+    }
+    __syncthreads();
+  }
+  // back substitution, column by column
+  for (int j = D - 1; j >= 0; --j) {
+    for (int r = tid; r < R; r += nthr) S[j * W + D + r] /= S[j * W + j];
+    __syncthreads();
+    for (int t = tid; t < j * R; t += nthr) {
+      const int i = t / R;
+      const int r = t - i * R;
+      S[i * W + D + r] -= S[i * W + j] * S[j * W + D + r];
+    }
+    __syncthreads();
+  }
+
+  T* xp = x + p * D * R;
+  for (int e = tid; e < D * R; e += nthr) {
+    const int i = e / R;
+    xp[e] = S[i * W + D + (e - i * R)];
+  }
+}
+
+template <typename T>
+int launch_bm(const void* A, const void* b, void* x, int64_t N, int64_t D,
+              int64_t R, void* stream) {
+  const int64_t smem = D * (D + R) * static_cast<int64_t>(sizeof(T));
+  if (N <= 0 || N > 0x7fffffff || smem > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lu_solve_bm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  lu_solve_bm_kernel<T><<<static_cast<unsigned>(N), dim3(32, kBmWarps),
+                          static_cast<size_t>(smem),
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<const T*>(b), static_cast<T*>(x),
+      static_cast<int>(D), static_cast<int>(R));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -83,6 +184,16 @@ int eqlb_lu_solve_bl_f32(const void* A, const void* b, void* As, void* x,
 int eqlb_lu_solve_bl_f64(const void* A, const void* b, void* As, void* x,
                          int64_t D, int64_t R, int64_t X, void* stream) {
   return launch<double>(A, b, As, x, D, R, X, stream);
+}
+
+int eqlb_lu_solve_bm_f32(const void* A, const void* b, void* x, int64_t N,
+                         int64_t D, int64_t R, void* stream) {
+  return launch_bm<float>(A, b, x, N, D, R, stream);
+}
+
+int eqlb_lu_solve_bm_f64(const void* A, const void* b, void* x, int64_t N,
+                         int64_t D, int64_t R, void* stream) {
+  return launch_bm<double>(A, b, x, N, D, R, stream);
 }
 
 }  // extern "C"

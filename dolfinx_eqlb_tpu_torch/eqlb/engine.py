@@ -1,29 +1,41 @@
-"""Batched patch-wise equilibration engine — the fused semi-explicit path.
+"""Batched patch-wise equilibration engine.
 
 Port of ``dolfinx_eqlb_tpu/eqlb/engine.py`` (see its docstring for the patch
-problem).  Slice 1 carries the path ``bench.py`` times:
-``EqlbEngine.equilibrate`` on the fused semi-explicit program, in four
-stages:
+problem).  ``EqlbEngine.equilibrate`` runs one of two modes:
 
-1. host tables (``__init__``): patch buckets, chunked to at most
-   ``max_patches_per_bucket`` patches, their dof and explicit-step tables,
-   and the flux-major combine table ``src``;
-2. geometry caches, built once (``_device_tables``): element mass
-   matrices, reduced H(div=0) matrices A_z and, for interior buckets, their
-   inverses through K1 (``ops.patch_solve``);
-3. per call, per bucket (``semiexplicit.solve_bucket_semiexplicit``): load
-   moments, the explicit step and the reduced solve — a cached-inverse
-   product on interior buckets, a masked K1 solve on boundary buckets;
-4. the global combine through K2 (``ops.lane_select.combine_gather``).
+* ``mode="semiexplicit"`` (the default; the path ``bench.py`` times), the
+  fused semi-explicit program, in four stages:
+
+  1. host tables (``__init__``): patch buckets, chunked to at most
+     ``max_patches_per_bucket`` patches, their dof and explicit-step tables,
+     and the flux-major combine table ``src``;
+  2. geometry caches, built once (``_device_tables``): element mass
+     matrices, reduced H(div=0) matrices A_z and, for interior buckets,
+     their inverses through K1 (``ops.patch_solve``);
+  3. per call, per bucket (``semiexplicit.solve_bucket_semiexplicit``): load
+     moments, the explicit step and the reduced solve — a cached-inverse
+     product on interior buckets, a masked K1 solve on boundary buckets;
+  4. the global combine through K2 (``ops.lane_select.combine_gather``) or,
+     with ``combine="ds"``, the double-single K4 (``ds_combine_gather``).
+
+* ``mode="kkt"``, the reference's full saddle-point formulation, kept to
+  cross-check the fast path: per bucket, ``_assemble_bucket`` builds one
+  dense KKT system per patch from batch-major tables, ``_dense_solve``
+  solves them through K3 (``ops.patch_solve.batched_kkt_solve``), and the
+  flux part of the solutions goes through the same combine as above.
+
+``solver="kernel_mixed"`` on an f64 engine factors in f32 on K1 and refines
+in f64 (``_dense_solve_bl``), the reference's ``"pallas_mixed"``.
 
 The engine is a plain class holding device tensors in dicts shaped like the
 reference's ``dev`` / ``refd``; it has no parameters.  Everything runs
 eagerly.  Left out on purpose, because they only served the TPU: the
 fusion fences, the trailing 128-lane NaN-guard pad of every bucket, the
-lane-packed / paired / double-single combine layouts and the compile-cache
-machinery.  Chunks are not padded, so a bucket's tables hold only real
-patches; tables taken from the reference engine (``from_host_tables``) may
-carry pad rows, whose ``gdofs == ndofs`` keeps them out of the combine.
+lane-packed / paired combine layouts, the [hi | lo] f32 load source of the
+double-single route and the compile-cache machinery.  Chunks are not
+padded, so a bucket's tables hold only real patches; tables taken from the
+reference engine (``from_host_tables``) may carry pad rows, whose
+``gdofs == ndofs`` keeps them out of the combine.
 """
 
 from __future__ import annotations
@@ -40,15 +52,15 @@ from ..elements.polynomials import legendre_shifted
 from ..elements.quadrature import gauss_interval, gauss_triangle
 from ..elements.rt import rt_cached
 from ..fem.spaces import FunctionSpace
-from ..ops.lane_select import combine_gather
-from ..ops.patch_solve import batched_kkt_solve_bl
+from ..ops.lane_select import combine_gather, ds_combine_gather
+from ..ops.patch_solve import batched_kkt_solve, batched_kkt_solve_bl
 from .patches import PatchBucket, bucket_dof_tables
 from .semiexplicit import (
-    combo_tensors, mass_matrices_bl, reduced_basis, reduced_system_bl,
-    se_host_tables, se_static, solve_bucket_semiexplicit,
+    boundary_ess_bl, combo_tensors, mass_matrices_bl, reduced_basis,
+    reduced_system_bl, se_host_tables, se_static, solve_bucket_semiexplicit,
 )
 
-__all__ = ["EqlbEngine", "reference_tensors"]
+__all__ = ["EqlbEngine", "k3_takes", "reference_tensors"]
 
 
 _HAT_GRADS = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
@@ -126,25 +138,63 @@ def _chunk_buckets(buckets, C: int):
     return split
 
 
-class EqlbEngine:
-    """Per-mesh, per-degree batched equilibration engine (semi-explicit).
+def _resolve_device(device) -> torch.device:
+    """``None`` means the card; without one, raise rather than fall back."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "EqlbEngine runs on the CUDA card by default and none is "
+                "available; pass device='cpu' for the plain versions")
+        device = "cuda"
+    return torch.device(device)
 
-    ``solver``: "kernel" (K1, the default) or "torch" (``torch.linalg.solve``)
-    for the batch-last patch solves, as the reference's "pallas" / "xla".
+
+def k3_takes(D: int) -> bool:
+    """The reference's size rule for its batch-major Pallas solve (two
+    (D, D, 128) f32 tiles in a 12 MiB budget: D <= 110).  The port routes
+    the same systems to K3, so both packages solve each system the same
+    way; K3 itself takes more (``ops.patch_solve.SMEM_LIMIT``)."""
+    return D * D * 128 * 4 * 2 < 12 * 2**20
+
+
+_MODES = ("semiexplicit", "kkt")
+_SOLVERS = ("kernel", "torch", "kernel_mixed")
+_COMBINES = ("gather", "ds")
+
+
+class EqlbEngine:
+    """Per-mesh, per-degree batched equilibration engine.
+
+    Options, plain attributes read at every ``equilibrate`` call:
+
+    * ``mode``: "semiexplicit" (default) or "kkt" (see the module
+      docstring), as in the reference.
+    * ``solver``: "kernel" (default; K1 for the batch-last solves, K3 for
+      the KKT systems up to the reference's size rule), "torch"
+      (``torch.linalg.solve``) or "kernel_mixed" (f64 engines: K1 in f32
+      plus ``mixed_refine_steps`` f64 residual corrections; KKT systems go
+      to ``torch.linalg.solve``) — the reference's "pallas" / "xla" /
+      "pallas_mixed".
+    * ``mixed_refine_steps``: corrections of "kernel_mixed" (default 1).
+    * ``combine``: "gather" (K2, default) or "ds" (K4, the double-single
+      combine; f64 engines only).
+
     On CPU tensors the kernels' wrappers take their plain versions, so
-    "kernel" runs everywhere."""
+    every option runs everywhere."""
 
     def __init__(
         self,
         V_flux: FunctionSpace,
         buckets: dict[tuple, PatchBucket],
         dtype: torch.dtype = torch.float64,
-        device="cpu",
+        device=None,
         max_patches_per_bucket: int | None = None,
     ):
         """``dtype``: compute precision of the patch solves (f64 default).
-        ``max_patches_per_bucket``: split larger buckets into chunks of at
-        most this many patches."""
+        ``device``: the CUDA card by default; ``"cpu"`` runs the kernels'
+        plain versions.  ``max_patches_per_bucket``: split larger buckets
+        into chunks of at most this many patches."""
+        device = _resolve_device(device)
         if V_flux.family != "RT":
             raise ValueError("the flux space must be RT")
         k = V_flux.degree
@@ -176,12 +226,13 @@ class EqlbEngine:
 
     @classmethod
     def from_host_tables(cls, V_flux, buckets, tables, se_static, ref,
-                         dtype: torch.dtype = torch.float64, device="cpu"):
+                         dtype: torch.dtype = torch.float64, device=None):
         """Engine over given host state — the reference engine's
         ``buckets``, ``tables``, ``se_static`` and ``ref`` (plain NumPy) —
         so a parity failure can be pinned on the host tables or on the
         device stages.  Pad rows in the tables (``gdofs == ndofs``) are
         solved and never combined."""
+        device = _resolve_device(device)
         eng = cls.__new__(cls)
         eng._setup(V_flux, buckets, tables, se_static, ref, dtype, device)
         return eng
@@ -197,11 +248,17 @@ class EqlbEngine:
         self.se_static = statics
         self.ref = ref
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = device
+        self.mode = "semiexplicit"
         self.solver = "kernel"
+        self.mixed_refine_steps = 1
+        self.combine = "gather"
         self._build_combine_table()
         self._dev = None
         self._refd = None
+        self._kdev = None
+        self._krefd = None
+        self._src_dev = None
 
     def _build_combine_table(self):
         """Gather-based global accumulation: every global dof has at most 3
@@ -307,9 +364,71 @@ class EqlbEngine:
                     d["Ainv_bl"] = self._dense_solve_bl(
                         d["Az_bl"], eye.expand(Dz, Dz, P).contiguous())
                 dev[key] = d
-        refd["src"] = torch.as_tensor(self._src, device=devc)
         self._dev, self._refd = dev, refd
         return dev, refd
+
+    def _kkt_tables(self):
+        """Upload the batch-major tables of the KKT mode (once; the
+        reference's ``_ensure_full_tables``) and the per-cell assembly
+        positions.  Separate from ``_device_tables``: the KKT mode needs
+        none of the semi-explicit geometry caches."""
+        if self._kdev is not None:
+            return self._kdev, self._krefd
+        dt, devc = self.dtype, self.device
+        ndg = self.k * (self.k + 1) // 2
+
+        def f(a):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                   device=devc)
+
+        def i64(a):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int64,
+                                   device=devc)
+
+        krefd = {name: f(self.ref[name])
+                 for name in ("Mhat", "Dhat", "Rhat", "T3", "cpen", "Wend")}
+        krefd["hat_grads"] = f(_HAT_GRADS)
+        kdev = {}
+        for key in sorted(self.tables.keys()):
+            t = self.tables[key]
+            b = self.buckets[key]
+            D, nflux = self.kkt_size(key)
+            # cell i's flux rows ix and constraint rows q: flat positions of
+            # its [M | -B; B^T] blocks in a (D, D) system, and of its load
+            # rows; unique within a cell, shared between cells
+            asm, rhs = [], []
+            for i in range(b.ncells):
+                ix = t["patch_idx"][i]
+                q = nflux + i * ndg + np.arange(ndg)
+                asm.append(np.concatenate([
+                    (ix[:, None] * D + ix[None, :]).ravel(),
+                    (q[:, None] * D + ix[None, :]).ravel(),
+                    (ix[:, None] * D + q[None, :]).ravel()]))
+                rhs.append(np.concatenate([ix, q]))
+            d = {
+                "J": f(t["J"]),
+                "detJ": f(t["detJ"]),
+                "K": f(t["K"]),
+                "perm": i64(t["perm"]),
+                "signs": f(t["signs"]),
+                "cells": i64(t.get("cells", b.cells)),
+                "lnode": i64(t.get("lnode", b.lnode)),
+                "asm_idx": i64(np.stack(asm)),
+                "rhs_idx": i64(np.stack(rhs)),
+            }
+            if b.is_boundary:
+                d["bspokes"] = i64(t["bspokes"])
+                d["z_is_lo"] = torch.as_tensor(
+                    np.ascontiguousarray(t["z_is_lo"]), device=devc)
+            kdev[key] = d
+        self._kdev, self._krefd = kdev, krefd
+        return kdev, krefd
+
+    def _combine_src(self) -> torch.Tensor:
+        """The combine table ``src`` on the device (uploaded once)."""
+        if self._src_dev is None:
+            self._src_dev = torch.as_tensor(self._src, device=self.device)
+        return self._src_dev
 
     # --- the call --------------------------------------------------------------
 
@@ -339,16 +458,39 @@ class EqlbEngine:
                                                essential (Neumann data)
           bvals           (n_rhs, nf, k):      facet dof values of the flux BC
           transposed_inputs: the first two come from ``put_transposed``
+                             (semi-explicit mode only)
         """
-        if transposed_inputs:
-            dpT, drT = sigma_proj_dofs, rhs_dofs
-        else:
-            dpT, drT = self.put_transposed(sigma_proj_dofs, rhs_dofs)
+        self._check_options()
+        if transposed_inputs and self.mode == "kkt":
+            raise ValueError(
+                "transposed_inputs=True needs mode='semiexplicit': the KKT "
+                "mode reads the batch-major data")
         fk = torch.as_tensor(facet_kind, device=self.device)
         bv = torch.as_tensor(bvals, dtype=self.dtype, device=self.device)
         with _full_f32_matmul():
-            flat = self._bucket_solutions(dpT, drT, fk, bv)
+            if self.mode == "kkt":
+                dp = torch.as_tensor(sigma_proj_dofs, dtype=self.dtype,
+                                     device=self.device)
+                dr = torch.as_tensor(rhs_dofs, dtype=self.dtype,
+                                     device=self.device)
+                flat = self._bucket_solutions_kkt(dp, dr, fk, bv)
+            else:
+                if transposed_inputs:
+                    dpT, drT = sigma_proj_dofs, rhs_dofs
+                else:
+                    dpT, drT = self.put_transposed(sigma_proj_dofs, rhs_dofs)
+                flat = self._bucket_solutions(dpT, drT, fk, bv)
             return self._combine_flat(flat)
+
+    def _check_options(self):
+        for name, allowed in (("mode", _MODES), ("solver", _SOLVERS),
+                              ("combine", _COMBINES)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"unknown {name} {getattr(self, name)!r}; "
+                                 f"one of {allowed}")
+        if self.combine == "ds" and self.dtype != torch.float64:
+            raise ValueError("combine='ds' (double-single) needs an f64 "
+                             f"engine, this one is {self.dtype}")
 
     def _bucket_solutions(self, dpT, drT, facet_kind, bvals):
         """Stage 3: every bucket's patch solutions, concatenated flux-major
@@ -365,18 +507,181 @@ class EqlbEngine:
         flats.append(dprT.new_zeros((n_rhs, 1)))
         return torch.cat(flats, dim=1)
 
+    def _bucket_solutions_kkt(self, d_proj, d_rhs, facet_kind, bvals):
+        """KKT mode's stage 3: the flux part of every bucket's KKT
+        solutions in the semi-explicit path's flat layout (position
+        off + f * P + p, zero pad slot last), so the same combine serves
+        both modes.  The reference scatter-adds the bucket solutions
+        instead (same sums); the gather needs no sink for pad rows and no
+        atomics.  d_proj (n_rhs, nc, 2, ndg), d_rhs (n_rhs, nc, ndg)."""
+        kdev, krefd = self._kkt_tables()
+        n_rhs = d_proj.shape[0]
+        flats = []
+        for key in sorted(self.buckets.keys()):
+            Ar, br, nflux = self._assemble_bucket(
+                key, d_proj, d_rhs, facet_kind, bvals, kdev[key], krefd)
+            sol = self._dense_solve(Ar, br[..., None])[..., :nflux, 0]
+            flats.append(sol.transpose(1, 2).reshape(n_rhs, -1))
+            del Ar, br, sol
+        flats.append(d_proj.new_zeros((n_rhs, 1)))
+        return torch.cat(flats, dim=1)
+
     def _combine_flat(self, flat):
         """Stage 4: global accumulation (n_rhs, total + 1) ->
         (n_rhs, ndofs) through K2 — the reference's element-gather
-        combine."""
-        _, refd = self._device_tables()
-        return combine_gather(flat, refd["src"], self._nfk)
+        combine — or, with ``combine="ds"``, through K4, the reference's
+        double-single combine (``_ds_combine``)."""
+        fn = ds_combine_gather if self.combine == "ds" else combine_gather
+        return fn(flat, self._combine_src(), self._nfk)
 
     def _dense_solve_bl(self, A, b):
-        """Batch-last solve: A (D, D, X), b (D, R, X) -> (D, R, X)."""
-        if self.solver == "kernel":
-            return batched_kkt_solve_bl(A, b)
-        if self.solver != "torch":
-            raise ValueError(f"unknown solver {self.solver!r}")
-        x = torch.linalg.solve(A.permute(2, 0, 1), b.permute(2, 0, 1))
-        return x.permute(1, 2, 0).contiguous()
+        """Batch-last solve: A (D, D, X), b (D, R, X) -> (D, R, X).
+
+        ``solver="kernel_mixed"`` on f64 operands: K1 in f32, then
+        ``mixed_refine_steps`` f64 residual corrections, each a plain f64
+        r = b - A y and a K1 f32 solve of r added to y.  The cached bucket
+        inverses are built through this routine, so the per-call path
+        inherits their accuracy."""
+        if self.solver == "torch":
+            x = torch.linalg.solve(A.permute(2, 0, 1), b.permute(2, 0, 1))
+            return x.permute(1, 2, 0).contiguous()
+        if self.solver == "kernel_mixed" and A.dtype == torch.float64:
+            A32 = A.float()
+            y = batched_kkt_solve_bl(A32, b.float()).double()
+            for _ in range(self.mixed_refine_steps):
+                r = b - torch.einsum("ijx,jcx->icx", A, y)
+                y = y + batched_kkt_solve_bl(A32, r.float()).double()
+            return y
+        return batched_kkt_solve_bl(A, b)
+
+    def _dense_solve(self, A, b):
+        """Batch-major solve of the KKT systems: A (..., P, D, D),
+        b (..., P, D, R).  ``solver="kernel"`` takes K3 for the sizes
+        ``k3_takes`` admits; the rest go to ``torch.linalg.solve``, as in
+        the reference."""
+        if self.solver == "kernel" and k3_takes(A.shape[-1]):
+            return batched_kkt_solve(A, b)
+        return torch.linalg.solve(A, b)
+
+    def kkt_size(self, key) -> tuple[int, int]:
+        """(D, nflux) of bucket ``key``'s KKT systems: its flux dofs, then
+        one DG_{k-1} constraint block per cell."""
+        b = self.buckets[key]
+        k = self.k
+        nflux = b.nspokes * k + b.ncells * self.V.element.ndofs_cell
+        return nflux + b.ncells * k * (k + 1) // 2, nflux
+
+    # --- KKT mode ---------------------------------------------------------------
+
+    def _element_data(self, d_proj, d_rhs, dv, refd):
+        """Canonical per-cell element tensors of one bucket:
+        Mc (P, n, nkeep, nkeep), Bc (P, n, nkeep, ndg),
+        Fv (n_rhs, P, n, nkeep), Fq (n_rhs, P, n, ndg).  The hat-function
+        slot lnode picks its reference slice by a gather; the reference
+        blends the three with one-hot weights to spare the TPU's tiling,
+        which gives the same values."""
+        J, detJ, K = dv["J"], dv["detJ"], dv["K"]  # (P, n, 2, 2), (P, n)
+        adet, sdet = detJ.abs(), torch.sign(detJ)
+        perm, signs = dv["perm"], dv["signs"]  # (P, n, nkeep)
+        cells, lnode = dv["cells"], dv["lnode"]  # (P, n)
+        P, n, nkeep = perm.shape
+        n_rhs = d_proj.shape[0]
+
+        JtJ = torch.einsum("pcka,pckb->pcab", J, J)
+        Mgeo = torch.einsum("pcab,abij->pcij", JtJ, refd["Mhat"])
+        Mgeo = Mgeo / adet[..., None, None]
+        nrt = Mgeo.shape[-1]
+        Mc = torch.gather(Mgeo, 2, perm[..., None].expand(P, n, nkeep, nrt))
+        Mc = torch.gather(Mc, 3, perm[:, :, None, :].expand(P, n, nkeep, nkeep))
+        Mc = Mc * signs[..., :, None] * signs[..., None, :]
+        Bc = sdet[..., None, None] * refd["Dhat"][perm] * signs[..., None]
+
+        dp = d_proj[:, cells]  # (n_rhs, P, n, 2, ndg)
+        fr = d_rhs[:, cells]  # (n_rhs, P, n, ndg)
+        pick = lnode[None, :, :, None, None]  # hat slot l of each cell
+        dpJ = torch.einsum("rpcam,pcab->rpcbm", dp, J)
+        Fv_full = torch.take_along_dim(
+            torch.einsum("rpcbm,lmbi->rpcli", dpJ, refd["Rhat"]), pick,
+            dim=3)[:, :, :, 0]
+        Fq = torch.take_along_dim(
+            torch.einsum("rpcm,lmq->rpclq", fr, refd["T3"]), pick,
+            dim=3)[:, :, :, 0]
+        # grad(psi)_a = K_{ba} ghat_b
+        gpsi = torch.einsum("pcba,pcb->pca", K, refd["hat_grads"][lnode])
+        Fq = Fq + torch.einsum("pca,rpcaq->rpcq", gpsi, dp)
+        Fv_full = Fv_full * sdet[None, ..., None]
+        Fq = Fq * adet[None, ..., None]
+        Fv = torch.gather(Fv_full, 3, perm[None].expand(n_rhs, P, n, nkeep))
+        return Mc, Bc, Fv * signs[None], Fq
+
+    def _boundary_ess(self, facet_kind, bvals, dv, refd):
+        """Essential-spoke markers and hat-weighted dof values of a boundary
+        bucket, batch-major: (ess (n_rhs, P, 2) bool,
+        hatvals (n_rhs, P, 2, k)) — ``boundary_ess_bl`` unfolded."""
+        n_rhs, P = facet_kind.shape[0], dv["bspokes"].shape[0]
+        ess, hatvals = boundary_ess_bl(self, facet_kind, bvals, dv, refd)
+        return (ess.view(2, n_rhs, P).permute(1, 2, 0),
+                hatvals.view(2, self.k, n_rhs, P).permute(2, 3, 0, 1))
+
+    def _assemble_bucket(self, key, d_proj, d_rhs, facet_kind, bvals, dv,
+                         refd):
+        """The dense KKT systems of one bucket, ordered [sigma | r]:
+        Ar (n_rhs, P, D, D), br (n_rhs, P, D) and the flux size nflux.
+
+        The mean-value multiplier enters as the reference's exact rank-1
+        regularisation beta c c^T of the r-block on interior and
+        pure-Neumann patches (sigma is unchanged, since B^T c = 0, and
+        every pivot of the pivot-free order is nonzero); essential flux
+        dofs become identity rows.  Cells share spoke rows, so the blocks
+        are added cell by cell with ``index_add_`` — unique positions per
+        cell, so the sums are deterministic and in the reference's order."""
+        b = self.buckets[key]
+        k = self.k
+        n, ns = b.ncells, b.nspokes
+        D, nflux = self.kkt_size(key)
+        P = dv["J"].shape[0]
+        n_rhs = d_proj.shape[0]
+        Mc, Bc, Fv, Fq = self._element_data(d_proj, d_rhs, dv, refd)
+
+        A = Mc.new_zeros((P, D * D))
+        bvec = Mc.new_zeros((n_rhs, P, D))
+        for i in range(n):
+            blocks = torch.cat([Mc[:, i].reshape(P, -1),
+                                Bc[:, i].transpose(1, 2).reshape(P, -1),
+                                -Bc[:, i].reshape(P, -1)], dim=1)
+            A.index_add_(1, dv["asm_idx"][i], blocks)
+            bvec.index_add_(2, dv["rhs_idx"][i],
+                            torch.cat([Fv[:, :, i], Fq[:, :, i]], dim=2))
+        del Mc, Bc, Fv, Fq
+        # constraint mean-mode vector; its per-cell blocks are disjoint
+        cvec = (dv["detJ"].abs()[:, :, None] * refd["cpen"]).reshape(P, -1)
+        R1 = cvec[:, :, None] * cvec[:, None, :] / (
+            (cvec * cvec).sum(1)[:, None, None])
+
+        if b.is_boundary:
+            ess, hatvals = self._boundary_ess(facet_kind, bvals, dv, refd)
+            mask = torch.zeros((n_rhs, P, D), dtype=torch.bool,
+                               device=A.device)
+            values = bvec.new_zeros((n_rhs, P, D))
+            for e, sp in enumerate((0, ns - 1)):
+                cols = slice(sp * k, sp * k + k)
+                mask[:, :, cols] = ess[:, :, e:e + 1]
+                values[:, :, cols] = torch.where(ess[:, :, e:e + 1],
+                                                 hatvals[:, :, e], 0.0)
+            # the multiplier is active only if both spokes are essential
+            lam_on = ess[:, :, 0] & ess[:, :, 1]
+        else:
+            lam_on = torch.ones((n_rhs, P), dtype=torch.bool,
+                                device=A.device)
+
+        # n_rhs = 1 takes A itself, with no copy
+        Ar = A.view(1, P, D, D).expand(n_rhs, P, D, D).contiguous()
+        del A
+        Ar[:, :, nflux:, nflux:] += torch.where(lam_on[..., None, None],
+                                                R1[None], 0.0)
+        if not b.is_boundary:
+            return Ar, bvec, nflux
+        eye = torch.eye(D, dtype=Ar.dtype, device=Ar.device)
+        Ar = torch.where(mask[..., None], eye, Ar)
+        return Ar, torch.where(mask, values, bvec), nflux
+

@@ -1,6 +1,7 @@
 """nvcc build and ctypes loader for the hand-written CUDA kernels in ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) into ONE shared
+Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``), one nvcc per
+source, all started together, and the objects are linked into ONE shared
 library with a plain C interface, at first use, into the package's
 git-ignored ``_build/`` directory.  The library name carries a hash of the
 sources and flags, so an edit rebuilds and a stale library is never loaded.
@@ -28,10 +29,8 @@ __all__ = ["library", "build_info", "check"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -39,7 +38,8 @@ _info: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
-# name -> argtypes; one float and one double instantiation of each kernel
+# name -> argtypes; a float and a double instantiation of each kernel but
+# the double-single combine, which exists for f64 only
 _SIGNATURES = {
     # (A, b, As scratch, x, D, R, X, stream)
     "eqlb_lu_solve_bl_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -47,6 +47,11 @@ _SIGNATURES = {
     # (flat, src, out, R, L, ndofs, nfk, stream)
     "eqlb_combine_gather_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "eqlb_combine_gather_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # (A, b, x, N, D, R, stream)
+    "eqlb_lu_solve_bm_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "eqlb_lu_solve_bm_f64": [_P, _P, _P, _I, _I, _I, _P],
+    # (flat, src, out, R, L, ndofs, nfk, stream); f64 only
+    "eqlb_ds_combine_gather_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -76,6 +81,35 @@ def _library_path(srcs: list[str]) -> str:
     return os.path.join(_BUILD, f"libeqlbkernels-{h.hexdigest()[:12]}.so")
 
 
+def _compile(srcs: list[str], path: str) -> str:
+    """Compile every source with its own nvcc process, all at once, link
+    the objects into ``path`` (atomic rename) and return the compilers'
+    output."""
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+    try:
+        procs = [subprocess.Popen([nvcc, *_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        outs = [proc.communicate()[0] for proc in procs]
+        for src, proc, out in zip(srcs, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+        res = subprocess.run([nvcc, *_ARCH, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)
+        os.replace(tmp, path)
+        return "".join(outs) + res.stdout + res.stderr
+    finally:
+        for name in (tmp, *objs):
+            if os.path.exists(name):
+                os.remove(name)
+
+
 def library():
     """The loaded kernel library (built on first call); raises if nvcc is
     missing or the build fails — there is no fallback."""
@@ -86,22 +120,8 @@ def library():
         srcs = _sources()
         path = _library_path(srcs)
         t0 = time.perf_counter()
-        log = ""
         built = not os.path.exists(path)
-        if built:
-            os.makedirs(_BUILD, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *_FLAGS, "-o", tmp, *srcs]
-            try:
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        "nvcc failed:\n" + res.stdout + res.stderr)
-                log = res.stdout + res.stderr
-                os.replace(tmp, path)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
+        log = _compile(srcs, path) if built else ""
         lib = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -1,18 +1,27 @@
-"""K1: batched pivot-free dense solve of the per-patch systems, batch-last.
+"""Batched pivot-free dense solves of the per-patch systems: K1 and K3.
 
-Replaces the Pallas TPU kernel ``dolfinx_eqlb_tpu/ops/patch_solve.py::_kernel``
-(driver ``_solve_padded``, entry ``batched_kkt_solve_bl``).  The CUDA kernel
-is ``csrc/patch_solve.cu``; its header says what bounds it on the card (memory
-traffic: O(D^3) work on O(D^2) values per system) and how the design answers
-(one thread per system, batch-last so every access coalesces).
+Both replace the Pallas TPU kernel ``dolfinx_eqlb_tpu/ops/patch_solve.py::
+_kernel`` (driver ``_solve_padded``), one per entry of it; the CUDA kernels
+are in ``csrc/patch_solve.cu``, whose notes say what bounds each on the card
+and how its design answers.
+
+* K1, ``batched_kkt_solve_bl`` (entry ``batched_kkt_solve_bl``): batch-last
+  A (D, D, X), the semi-explicit engine's small reduced systems; one thread
+  per system, batch-last so every access coalesces.
+* K3, ``batched_kkt_solve`` (entry ``batched_kkt_solve``): batch-major
+  A (..., P, D, D), the KKT mode's full patch systems, D in the tens; one
+  thread block per system, staged in shared memory.
 
 Pivot-free LU is the contract, and it is sound for the callers' systems:
 the semi-explicit engine's reduced matrices are SPD, with identity rows on
-masked columns.  The weakly-symmetric stress systems need pivoting and do
-not come here.
+masked columns, and the KKT systems are regularised so that no pivot of
+the [sigma | r] order vanishes (see ``eqlb.engine``).  The weakly-symmetric
+stress systems need pivoting and do not come here.  The TPU kernel's pad of
+D to a multiple of 8 and of the batch to its tile with identity systems
+served Mosaic only and is not carried over.
 
-``batched_kkt_solve_bl`` takes the plain PyTorch version below only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.
+Each wrapper takes its plain PyTorch version below only for CPU tensors;
+for CUDA tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -21,10 +30,15 @@ import torch
 
 from . import _build
 
-__all__ = ["batched_kkt_solve_bl", "batched_kkt_solve_bl_plain"]
+__all__ = ["batched_kkt_solve_bl", "batched_kkt_solve_bl_plain",
+           "batched_kkt_solve", "batched_kkt_solve_plain"]
 
 _FUNCS = {torch.float32: "eqlb_lu_solve_bl_f32",
           torch.float64: "eqlb_lu_solve_bl_f64"}
+_FUNCS_BM = {torch.float32: "eqlb_lu_solve_bm_f32",
+             torch.float64: "eqlb_lu_solve_bm_f64"}
+# dynamic shared memory one thread block of K3 can hold: D (D + R) values
+SMEM_LIMIT = 232448
 
 
 def batched_kkt_solve_bl_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -79,3 +93,67 @@ def batched_kkt_solve_bl(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 batched_kkt_solve_bl.launches = 0
+
+
+def batched_kkt_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The pivot-free loop on batch-major tensors: A (..., P, D, D),
+    b (..., P, D, R) -> x (..., P, D, R), leading axes folded.  Forward
+    substitution is fused into the elimination, then back substitution
+    follows."""
+    D, R = A.shape[-1], b.shape[-1]
+    A2 = A.reshape(-1, D, D).clone()
+    x = b.reshape(-1, D, R).clone()
+    for j in range(D):
+        lcol = A2[:, j + 1:, j] / A2[:, j, j, None]  # (N, D-j-1)
+        A2[:, j + 1:, j + 1:] -= lcol[:, :, None] * A2[:, j, None, j + 1:]
+        x[:, j + 1:] -= lcol[:, :, None] * x[:, j, None]
+    for j in reversed(range(D)):
+        acc = (A2[:, j, j + 1:, None] * x[:, j + 1:]).sum(1)  # (N, R)
+        x[:, j] = (x[:, j] - acc) / A2[:, j, j, None]
+    return x.reshape(b.shape)
+
+
+def batched_kkt_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batch-major solve: A (..., P, D, D), b (..., P, D, R) ->
+    x (..., P, D, R), pivot-free; the leading axes are folded into one
+    batch.
+
+    CPU tensors take the plain version; CUDA tensors launch the K3 kernel
+    (``batched_kkt_solve.launches`` counts the launches), which holds one
+    augmented system [A | b] in a thread block's shared memory: D (D + R)
+    values may take at most ``SMEM_LIMIT`` bytes."""
+    if A.dim() < 3 or A.dim() != b.dim() or A.shape[-1] != A.shape[-2] \
+            or A.shape[:-1] != b.shape[:-1]:
+        raise ValueError(
+            f"need A (..., P, D, D) and b (..., P, D, R), got "
+            f"{tuple(A.shape)} and {tuple(b.shape)}")
+    if A.dtype != b.dtype or A.device != b.device:
+        raise ValueError("A and b must share dtype and device")
+    if A.dtype not in _FUNCS_BM:
+        raise ValueError(f"unsupported dtype {A.dtype}")
+    if not (A.is_contiguous() and b.is_contiguous()):
+        raise ValueError("A and b must be contiguous")
+    D, R = b.shape[-2], b.shape[-1]
+    smem = D * (D + R) * A.element_size()
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"D={D}, R={R} needs {smem} bytes of shared memory per system, "
+            f"more than the {SMEM_LIMIT} a thread block can hold")
+    if A.device.type == "cpu":
+        return batched_kkt_solve_plain(A, b)
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    N = b.numel() // max(D * R, 1)
+    x = torch.empty_like(b)
+    if N == 0 or D == 0 or R == 0:
+        return x
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = getattr(_build.library(), _FUNCS_BM[A.dtype])
+        _build.check(fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), N, D, R,
+                        stream), _FUNCS_BM[A.dtype])
+    batched_kkt_solve.launches += 1
+    return x
+
+
+batched_kkt_solve.launches = 0

@@ -67,7 +67,7 @@ def _data(msh, k, seed, kinds=False):
 def _port(mesh, k, **kw):
     msh = _MESHES[mesh](gen)
     return EqlbEngine(FunctionSpace(msh, "RT", k), build_patches(msh),
-                      dtype=torch.float64, **kw)
+                      dtype=torch.float64, device="cpu", **kw)
 
 
 def _check(x_port, x_jax):
@@ -120,7 +120,7 @@ def test_from_host_tables(jax_engines):
     dp, dr, fk, bv = _data(jeng.mesh, 2, seed=8, kinds=True)
     eng = EqlbEngine.from_host_tables(
         jeng.V, jeng.buckets, jeng.tables, jeng.se_static, jeng.ref,
-        dtype=torch.float64)
+        dtype=torch.float64, device="cpu")
     _check(eng.equilibrate(dp, dr, fk, bv).numpy(),
            jeng.equilibrate(dp, dr, fk, bv))
 
@@ -133,6 +133,18 @@ def test_torch_solver(jax_engines):
     eng.solver = "torch"
     _check(eng.equilibrate(dp, dr, fk, bv).numpy(),
            jeng.equilibrate(dp, dr, fk, bv))
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without device=, the engine runs on the card; with none, it raises
+    instead of falling back to the CPU."""
+    eng = _port("crossed", 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EqlbEngine(eng.V, eng.buckets)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EqlbEngine.from_host_tables(eng.V, eng.buckets, eng.tables,
+                                    eng.se_static, eng.ref)
 
 
 def test_transposed_inputs(jax_engines):

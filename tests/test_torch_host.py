@@ -108,7 +108,7 @@ def test_numpy_fallbacks_identical(name, monkeypatch):
     tm = _MESHES[name](tgen)
     tV = TV(tm, "RT", 2)
     tb_native = tpat.build_patches(tm)
-    src_native = teng.EqlbEngine(tV, tb_native)._src
+    src_native = teng.EqlbEngine(tV, tb_native, device="cpu")._src
     monkeypatch.setattr(jnative, "_load", lambda: None)
     monkeypatch.setattr(tnative, "_load", lambda: None)
     assert not (jnative.available() or tnative.available())
@@ -116,7 +116,7 @@ def test_numpy_fallbacks_identical(name, monkeypatch):
     for key in tb_native:
         _assert_same(dataclasses.asdict(tb_native[key]),
                      dataclasses.asdict(tb[key]), str(key))
-    _assert_same(src_native, teng.EqlbEngine(tV, tb)._src, "combine src")
+    _assert_same(src_native, teng.EqlbEngine(tV, tb, device="cpu")._src, "combine src")
 
     jm, fm = _MESHES[name](jgen), _MESHES[name](tgen)
     for attr in _MESH_ATTRS:
