@@ -28,8 +28,12 @@ Phases, one line each:
       pipelined calls, launch counts, output checks, a stage breakdown;
    7. f64 parity on ``unit_square(64)``: card (kernels) against the CPU
       (plain versions);
-   8. K3 (batch-major pivot-free solve) against its plain version;
-   9. the KKT path, f64 and f32, against the f64 plain route;
+   8. K3 (batch-major pivot-free solve) against its plain version, by the
+      route ``k3_plan`` picks (the register route at D <= 64) and by the
+      shared-memory route on the same batch, timed in turns; then every
+      route once at a small batch, on each side of each split;
+   9. the KKT path, f64 and f32, against the f64 plain route, with K3's
+      launches split by route;
   10. K4 (double-single combine) against its plain version, bitwise;
   11. the mixed-precision path against the f64 plain route, and the
       native-f64 kernel route on the same tables.
@@ -188,6 +192,8 @@ def kernel_wrappers() -> dict:
 def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def read_launches() -> dict:
@@ -502,41 +508,75 @@ def kkt_shapes(engine):
 
 
 def phase_k3(shapes, device, timer):
-    """K3 against its plain version on random SPD batch-major systems; the
-    library call is torch.linalg.solve on the same batch."""
+    """K3 against its plain version on random SPD batch-major systems, by
+    the route ``k3_plan`` picks and by the shared-memory route on the same
+    batch; the library call is torch.linalg.solve on the same batch.  Then
+    the route ``k3_plan`` picks once at a small batch, checked and not
+    timed, at D = 32, 33 and 64 (the 7 x 4 and 8 x 5 register tiles at
+    their edges) and D = 75 and 105 (the shared route, at 105 in f64 past
+    48 KB of shared memory), so that every route is launched and checked."""
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
-        batched_kkt_solve, batched_kkt_solve_plain,
+        _solve_route, batched_kkt_solve, batched_kkt_solve_plain, k3_plan,
     )
 
     gen = torch.Generator(device=device).manual_seed(3)
-    rows = []
+    rows, tiles = [], []
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
         for D, R, X in shapes:
             A, b = spd_batch(X, D, R, dtype, device, gen)
-            x = batched_kkt_solve(A, b)
             xp = batched_kkt_solve_plain(A, b)
-            sync(device)
-            err = float((x - xp).abs().max())
-            rel = err / float(xp.abs().max())
+            scale = float(xp.abs().max())
+            route = k3_plan(D, R, dtype)
+            row = dict(dtype=dname(dtype), D=D, R=R, X=X, route=route)
+            for name, rt in (("", route), ("shared_", "shared")):
+                x = _solve_route(A, b, rt)
+                sync(device)
+                err = float((x - xp).abs().max())
+                row[f"{name}max_abs_err"] = err
+                row[f"{name}max_rel_err"] = err / scale
+                row[f"{name}ok"] = (bool(torch.isfinite(x).all())
+                                    and err / scale <= tol)
+                del x
             del xp
-            ms = timer.ms(lambda: batched_kkt_solve(A, b), reps=5)
-            plain_ms = timer.ms(lambda: batched_kkt_solve_plain(A, b),
-                                reps=2, warmup=1)
-            library_ms = timer.ms(lambda: torch.linalg.solve(A, b), reps=2,
-                                  warmup=1)
-            bound_ms, bound_by = lu_bound(D, R, X, dtype)
+            # routes in turns: register, shared, shared, register
+            t = {route: [], "shared": []}
+            for rt in (route, "shared", "shared", route):
+                t[rt].append(timer.ms(
+                    lambda: _solve_route(A, b, rt), reps=5))
+            row["ms"] = sum(t[route]) / 2
+            row["shared_ms"] = sum(t["shared"]) / 2
+            row["plain_ms"] = timer.ms(lambda: batched_kkt_solve_plain(A, b),
+                                       reps=2, warmup=1)
+            row["library_ms"] = timer.ms(lambda: torch.linalg.solve(A, b),
+                                         reps=2, warmup=1)
+            row["bound_ms"], row["bound_by"] = lu_bound(D, R, X, dtype)
+            row["ok"] = row["ok"] and row["shared_ok"]
+            rows.append(row)
+            log(f"    K3 {dname(dtype)} D={D} R={R} X={X}: {route} "
+                f"{row['ms']:.4f} ms (max_rel_err {row['max_rel_err']:.3e}), "
+                f"shared {row['shared_ms']:.4f} ms (max_rel_err "
+                f"{row['shared_max_rel_err']:.3e}), limit {tol:g}; plain "
+                f"{row['plain_ms']:.4f} ms, torch.linalg.solve "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}), share "
+                f"{row['bound_ms'] / row['ms']:.3f}"
+                f"{'' if row['ok'] else '  FAILED'}")
+            del A, b
+        for D in (32, 33, 64, 75, 105):
+            A, b = spd_batch(4096, D, 1, dtype, device, gen)
+            xp = batched_kkt_solve_plain(A, b)
+            route = k3_plan(D, 1, dtype)
+            x = batched_kkt_solve(A, b)
+            sync(device)
+            rel = float((x - xp).abs().max()) / float(xp.abs().max())
             ok = bool(torch.isfinite(x).all()) and rel <= tol
-            rows.append(dict(dtype=dname(dtype), D=D, R=R, X=X,
-                             max_abs_err=err, max_rel_err=rel, ms=ms,
-                             plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by, ok=ok))
-            log(f"    K3 {dname(dtype)} D={D} R={R} X={X}: "
-                f"max_rel_err={rel:.3e} (limit {tol:g}) kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, torch.linalg.solve "
-                f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+            tiles.append(dict(dtype=dname(dtype), D=D, R=1, X=4096,
+                              route=route, max_rel_err=rel, ok=ok))
+            log(f"    K3 tile check {dname(dtype)} D={D} X=4096: {route} "
+                f"max_rel_err={rel:.3e} (limit {tol:g})"
                 f"{'' if ok else '  FAILED'}")
-            del A, b, x
-    return rows
+            del A, b, x, xp
+    return rows, tiles
 
 
 def kkt_stages(eng, args, device) -> dict:
@@ -598,6 +638,8 @@ def phase_kkt(eng64, msh, device):
         x, res = drive(lambda: eng.equilibrate(*args), device, strict=3,
                        rounds=1, per_round=4)
         res["launches"] = read_launches()
+        res["k3_launches_by_route"] = dict(
+            kernel_wrappers()["K3"].launches_by_route)
         res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         res["stages_ms"] = kkt_stages(eng, args, device)
         res["finite"] = bool(torch.isfinite(x).all())
@@ -712,6 +754,7 @@ def main(argv=None) -> int:
     from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
     from dolfinx_eqlb_tpu_torch.mesh import unit_square
     from dolfinx_eqlb_tpu_torch.ops import _build
+    from dolfinx_eqlb_tpu_torch.ops.patch_solve import k3_plan
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -730,7 +773,9 @@ def main(argv=None) -> int:
     log(f"[2/{nph}] nvcc build: {info['seconds']:.2f} s "
         f"({'compiled' if info['built'] else 'cached'}) -> {info['path']}")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "Function properties for" in line:
+            log(f"    ptxas: {line.split('properties for')[-1].strip()}")
+        elif "registers" in line or "spill" in line:
             log(f"    ptxas: {line.strip()}")
     timer = Timer(device)
 
@@ -811,10 +856,10 @@ def main(argv=None) -> int:
                        max_patches_per_bucket=CHUNK)
     t_tables64 = time.perf_counter() - t0
     shapes3 = kkt_shapes(eng64)
-    log(f"[8/{nph}] K3 vs plain at the KKT path's shapes {shapes3} "
-        f"(f64 engine tables {t_tables64:.2f} s):")
-    k3 = phase_k3(shapes3, device, timer)
-    if not all(r["ok"] for r in k3):
+    log(f"[8/{nph}] K3 (both routes) vs plain at the KKT path's shapes "
+        f"{shapes3} (f64 engine tables {t_tables64:.2f} s):")
+    k3, k3_tiles = phase_k3(shapes3, device, timer)
+    if not all(r["ok"] for r in k3 + k3_tiles):
         failures.append("K3 disagrees with its plain version")
     torch.cuda.empty_cache()
 
@@ -824,8 +869,8 @@ def main(argv=None) -> int:
             f"first call {r['first_call_s']:.3f} s; strict "
             f"{r['strict_ms_median']:.3f} ms median, pipelined "
             f"{r['pipelined_ms_min']:.3f} ms ({r['stages_ms']}); peak "
-            f"{r['peak_mem_gib']:.2f} GiB; launches {r['launches']}; "
-            f"max|x - plain f64| "
+            f"{r['peak_mem_gib']:.2f} GiB; launches {r['launches']}, K3 by "
+            f"route {r['k3_launches_by_route']}; max|x - plain f64| "
             f"{r['max_abs_err_vs_plain_f64']:.3e} (limit "
             f"{r['err_limit']:.3e}){'' if r['ok'] else '  FAILED'}")
         log("    detail: " + json.dumps(r))
@@ -834,6 +879,12 @@ def main(argv=None) -> int:
         if r["launches"]["K3"] <= 0 or r["launches"]["K2"] <= 0:
             failures.append(f"KKT path {dt} skipped a kernel: "
                             f"{r['launches']}")
+        planned = {k3_plan(D, R, getattr(torch, dt)) for D, R, _ in shapes3}
+        stray = {rt: n for rt, n in r["k3_launches_by_route"].items()
+                 if n and rt not in planned}
+        if stray:
+            failures.append(f"KKT path {dt} launched K3 routes its shapes "
+                            f"do not plan ({planned}): {stray}")
     torch.cuda.empty_cache()
 
     log(f"[10/{nph}] K4 vs plain on the f64 engine's combine tables:")
@@ -894,6 +945,14 @@ def main(argv=None) -> int:
     for entry in entries:
         entry["launches_by_path"] = {
             name: p[entry["name"][:2]] for name, p in paths.items()}
+    # K3's numbers are its register route's; the shared route beside them
+    k3_row = biggest(k3, "float64")
+    entries[2].update(
+        k3_route=k3_row["route"], shared_ms=k3_row["shared_ms"],
+        shared_max_abs_err=max(r["shared_max_abs_err"] for r in k3),
+        launches_by_route={
+            name: kkt[dt]["k3_launches_by_route"]
+            for name, dt in (("kkt_f64", "float64"), ("kkt_f32", "float32"))})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

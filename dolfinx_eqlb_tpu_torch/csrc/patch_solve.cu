@@ -172,6 +172,214 @@ int launch_bm(const void* A, const void* b, void* x, int64_t N, int64_t D,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3, register route: the same batch-major solve for D <= 64, each system's
+// trailing block held in registers.
+//
+// Replaces the same Pallas entry as the shared-memory route above
+// (dolfinx_eqlb_tpu/ops/patch_solve.py::batched_kkt_solve); the wrapper
+// picks the route (ops/patch_solve.py::k3_plan).
+//
+// What bounds the shared-memory route on this card is not HBM (its bound is
+// ~1 ms per 131072 systems at D = 56 in f64) but shared-memory traffic and
+// barriers: every multiply-add of the trailing update does two shared loads
+// and a store (~175k accesses per system at D = 56) and each system crosses
+// 4D block barriers.  Design: one system per block of 128 threads laid out
+// TR x TC = 8 x 16 over [A | b] (W = D + R columns).  Thread (ty, tx) owns
+// rows i = ty (mod 8) and columns c = tx (mod 16) and keeps its MR x MC
+// values in registers (MR, MC template parameters, so the tile never leaves
+// them); the loads go straight from device memory, a half-warp reading 16
+// consecutive values of a row.  Elimination step j has ONE barrier: before
+// it the owners of row j write it, scaled by the pivot's reciprocal, to a
+// shared U | y store (U[j, j] holds the reciprocal itself), and the owners
+// of column j write it to a double-buffered column (the buffer of step j is
+// rewritten at step j + 2, after every thread has passed the barrier of
+// step j + 1).  After it every thread updates its tile,
+// a[i][c] -= col[i] U[j, c], with at most MR x MC FMAs against MR + MC
+// shared loads, all broadcasts or 16 consecutive words.  The update reads
+// without bounds checks: a row i <= j or a column c <= j of a tile is dead
+// by then (written out, or never read).  Row j's slot in the store spans
+// the 16 MC columns a tile can name (plus one, an odd row stride against
+// bank conflicts), and its owners write all of the slot's columns they hold (zero outside j <= c < W) once, at step j,
+// before its barrier; so every read is of a value written before the
+// barrier it follows, and no slot is written again: the kernel has no
+// shared-memory race and reads nothing uninitialised.  The step loop is
+// split into blocks of 8 (one
+// thread row's worth), so the row and column blocks a step leaves behind
+// are dropped at compile time.  Back substitution runs in one warp from the
+// scaled store, with no block barrier: lane l owns rows l and l + 32; for j
+// descending the owner's value is x_j, broadcast by a shuffle, and every
+// lane subtracts U[i, j] x_j from its rows i < j.  x is written once.
+// On the H100 the kernel is bound by instruction issue and the latency of
+// each step's barrier-to-barrier chain, not by HBM or the FP64 pipe; the
+// register budget per tile is cut so that more blocks share an SM
+// (reg_min_blocks below).  Two steps per barrier, overlapping the next
+// system's load (cp.async / TMA), several small systems per block and
+// tensor cores are later work.
+
+constexpr int kRegTR = 8;   // thread rows of a block
+constexpr int kRegTC = 16;  // thread columns of a block (a half-warp)
+
+// per tile: the blocks per SM the register budget is cut for, and the
+// unroll of the step loop (H100 measurements, PERF.md); no tile spills
+template <typename T, int MR, int MC>
+constexpr int reg_min_blocks() {
+  constexpr int vals = MR * MC;
+  if (sizeof(T) == 8) return vals <= 8 ? 12 : vals <= 28 ? 6 : 4;
+  return vals <= 8 ? 16 : vals <= 28 ? 8 : 4;
+}
+
+// f64 <7, 4> spills 48 bytes at unroll 2 under its 80-register cap
+template <typename T, int MR, int MC>
+constexpr int reg_unroll() {
+  constexpr int vals = MR * MC;
+  return vals <= 8 ? 8 : (sizeof(T) == 8 && vals <= 28) ? 1 : 2;
+}
+
+template <typename T, int MR, int MC,
+          int kMinBlocks = reg_min_blocks<T, MR, MC>(),
+          int kUnroll = reg_unroll<T, MR, MC>()>
+__global__ void __launch_bounds__(kRegTR * kRegTC, kMinBlocks)
+lu_solve_bm_reg_kernel(const T* __restrict__ A, const T* __restrict__ b,
+                       T* __restrict__ x, int D, int R) {
+  constexpr int kRows = kRegTR * MR;  // rows the tile covers, >= D
+  constexpr int kCols = kRegTC * MC;  // columns the tile covers, >= W
+  // the store's row stride: odd, so the back substitution's reads down a
+  // column (one row a lane) fall in distinct banks
+  constexpr int kLd = kCols + 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* colbuf = reinterpret_cast<T*>(smem);  // 2 x kRows: column j
+  T* U = colbuf + 2 * kRows;  // D x kLd: [U | y] scaled, row j at j
+  const int W = D + R;
+  const int tid = threadIdx.x;
+  const int ty = tid / kRegTC, tx = tid % kRegTC;
+  const int half = tid & 16;  // the first lane of this thread's half-warp
+  const int64_t p = blockIdx.x;
+  const T* Ap = A + p * D * D;
+  const T* bp = b + p * D * R;
+
+  T a[MR][MC];
+#pragma unroll
+  for (int r = 0; r < MR; ++r) {
+    const int i = ty + kRegTR * r;
+#pragma unroll
+    for (int q = 0; q < MC; ++q) {
+      const int c = tx + kRegTC * q;
+      const T* src = c < D ? Ap + i * D + c : bp + i * R + (c - D);
+      a[r][q] = (i < D && c < W) ? *src : T(0);
+    }
+  }
+
+  // column elimination fused with forward substitution; step j = 8 rb + jj
+  // is row rb of thread row jj and column rb / 2 of thread column j % 16
+#pragma unroll
+  for (int rb = 0; rb < MR; ++rb) {
+    constexpr int kQ = kRegTC / kRegTR;
+    const int qb = rb / kQ;
+#pragma unroll kUnroll
+    for (int jj = 0; jj < kRegTR; ++jj) {
+      const int j = kRegTR * rb + jj;
+      if (j >= D) break;
+      T* col = colbuf + (j & 1) * kRows;
+      // every half-warp fetches its row's entry in column j; in the
+      // half-warp of row j that is the pivot
+      const T piv = __shfl_sync(0xffffffffu, a[rb][qb], half | (j % kRegTC));
+      if (ty == jj) {
+        const T inv = T(1) / piv;
+#pragma unroll
+        for (int q = qb; q < MC; ++q) {
+          const int c = tx + kRegTC * q;
+          U[j * kLd + c] =
+              c == j ? inv : (c > j && c < W) ? a[rb][q] * inv : T(0);
+        }
+      }
+      if (tx == j % kRegTC) {
+#pragma unroll
+        for (int r = rb; r < MR; ++r) col[ty + kRegTR * r] = a[r][qb];
+      }
+      __syncthreads();
+      T u[MC];
+#pragma unroll
+      for (int q = qb; q < MC; ++q) u[q] = U[j * kLd + tx + kRegTC * q];
+#pragma unroll
+      for (int r = rb; r < MR; ++r) {
+        const T l = col[ty + kRegTR * r];
+#pragma unroll
+        for (int q = qb; q < MC; ++q) a[r][q] = fma(-l, u[q], a[r][q]);
+      }
+    }
+  }
+  if (tid >= 32) return;
+
+  // back substitution in warp 0; lane owns rows lane + 32 s
+  constexpr int kSlots = (kRows + 31) / 32;
+  const int lane = tid;
+  T* xp = x + p * D * R;
+  for (int rr = 0; rr < R; ++rr) {
+    T y[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int i = lane + 32 * s;
+      y[s] = i < D ? U[i * kLd + D + rr] : T(0);
+    }
+#pragma unroll
+    for (int sb = kSlots - 1; sb >= 0; --sb) {
+#pragma unroll
+      for (int jl = 31; jl >= 0; --jl) {
+        const int j = 32 * sb + jl;
+        if (j < D) {
+          const T xj = __shfl_sync(0xffffffffu, y[sb], jl);
+#pragma unroll
+          for (int s = 0; s <= sb; ++s) {
+            const int i = lane + 32 * s;
+            if (i < j) y[s] -= U[i * kLd + j] * xj;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int i = lane + 32 * s;
+      if (i < D) xp[i * R + rr] = y[s];
+    }
+  }
+}
+
+template <typename T, int MR, int MC>
+int launch_bm_reg_tile(const void* A, const void* b, void* x, int64_t N,
+                       int64_t D, int64_t R, cudaStream_t stream) {
+  if (N <= 0 || N > 0x7fffffff || D < 1 || R < 1 || D > kRegTR * MR ||
+      D + R > kRegTC * MC)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // column buffers and [U | y] at row stride 16 MC + 1: <= 42 KB for every
+  // tile, under the 48 KB default
+  const int64_t smem = (2 * kRegTR * MR + D * (kRegTC * MC + 1)) *
+                       static_cast<int64_t>(sizeof(T));
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  lu_solve_bm_reg_kernel<T, MR, MC>
+      <<<static_cast<unsigned>(N), kRegTR * kRegTC, static_cast<size_t>(smem),
+         stream>>>(static_cast<const T*>(A), static_cast<const T*>(b),
+                   static_cast<T*>(x), static_cast<int>(D),
+                   static_cast<int>(R));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiles (MR, MC) built, smallest first: the one list of them in C.
+// ops/patch_solve.py::K3_REG_TILES names the same, and the wrapper holds
+// it against eqlb_lu_solve_bm_reg_tiles before its first launch.
+#define EQLB_K3_REG_TILES(X) X(4, 2) X(7, 4) X(8, 5)
+
+template <typename T>
+int launch_bm_reg(const void* A, const void* b, void* x, int64_t N, int64_t D,
+                  int64_t R, int64_t mr, int64_t mc, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+#define EQLB_K3_DISPATCH(MR, MC) \
+  if (mr == MR && mc == MC)      \
+    return launch_bm_reg_tile<T, MR, MC>(A, b, x, N, D, R, s);
+  EQLB_K3_REG_TILES(EQLB_K3_DISPATCH)
+#undef EQLB_K3_DISPATCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
@@ -194,6 +402,29 @@ int eqlb_lu_solve_bm_f32(const void* A, const void* b, void* x, int64_t N,
 int eqlb_lu_solve_bm_f64(const void* A, const void* b, void* x, int64_t N,
                          int64_t D, int64_t R, void* stream) {
   return launch_bm<double>(A, b, x, N, D, R, stream);
+}
+
+int eqlb_lu_solve_bm_reg_f32(const void* A, const void* b, void* x, int64_t N,
+                             int64_t D, int64_t R, int64_t mr, int64_t mc,
+                             void* stream) {
+  return launch_bm_reg<float>(A, b, x, N, D, R, mr, mc, stream);
+}
+
+int eqlb_lu_solve_bm_reg_f64(const void* A, const void* b, void* x, int64_t N,
+                             int64_t D, int64_t R, int64_t mr, int64_t mc,
+                             void* stream) {
+  return launch_bm_reg<double>(A, b, x, N, D, R, mr, mc, stream);
+}
+
+// writes up to cap values MR0, MC0, MR1, MC1, ... of the built register
+// tiles to out and returns the number of tiles
+int eqlb_lu_solve_bm_reg_tiles(int64_t* out, int64_t cap) {
+#define EQLB_K3_PAIR(MR, MC) MR, MC,
+  const int64_t tiles[] = {EQLB_K3_REG_TILES(EQLB_K3_PAIR)};
+#undef EQLB_K3_PAIR
+  constexpr int64_t n = sizeof(tiles) / sizeof(tiles[0]);
+  for (int64_t e = 0; e < n && e < cap; ++e) out[e] = tiles[e];
+  return static_cast<int>(n / 2);
 }
 
 }  // extern "C"

@@ -50,6 +50,11 @@ _SIGNATURES = {
     # (A, b, x, N, D, R, stream)
     "eqlb_lu_solve_bm_f32": [_P, _P, _P, _I, _I, _I, _P],
     "eqlb_lu_solve_bm_f64": [_P, _P, _P, _I, _I, _I, _P],
+    # (A, b, x, N, D, R, MR, MC, stream): K3's register route, tile MR x MC
+    "eqlb_lu_solve_bm_reg_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "eqlb_lu_solve_bm_reg_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (out, cap): the register route's built tiles, MR0, MC0, MR1, ...
+    "eqlb_lu_solve_bm_reg_tiles": [_P, _I],
     # (flat, src, out, R, L, ndofs, nfk, stream); f64 only
     "eqlb_ds_combine_gather_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
 }

@@ -10,7 +10,10 @@ and how its design answers.
   per system, batch-last so every access coalesces.
 * K3, ``batched_kkt_solve`` (entry ``batched_kkt_solve``): batch-major
   A (..., P, D, D), the KKT mode's full patch systems, D in the tens; one
-  thread block per system, staged in shared memory.
+  thread block per system, by one of two routes that ``k3_plan`` picks
+  from the shape: for D <= 64 the register route (each thread holds a
+  tile of [A | b] in registers, one barrier per elimination step), else
+  the shared-memory route ([A | b] staged in shared memory).
 
 Pivot-free LU is the contract, and it is sound for the callers' systems:
 the semi-explicit engine's reduced matrices are SPD, with identity rows on
@@ -26,19 +29,59 @@ for CUDA tensors it launches its kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 
 __all__ = ["batched_kkt_solve_bl", "batched_kkt_solve_bl_plain",
-           "batched_kkt_solve", "batched_kkt_solve_plain"]
+           "batched_kkt_solve", "batched_kkt_solve_plain", "k3_plan",
+           "K3_REG_TILES", "K3_ROUTES"]
 
 _FUNCS = {torch.float32: "eqlb_lu_solve_bl_f32",
           torch.float64: "eqlb_lu_solve_bl_f64"}
 _FUNCS_BM = {torch.float32: "eqlb_lu_solve_bm_f32",
              torch.float64: "eqlb_lu_solve_bm_f64"}
-# dynamic shared memory one thread block of K3 can hold: D (D + R) values
+_FUNCS_BM_REG = {torch.float32: "eqlb_lu_solve_bm_reg_f32",
+                 torch.float64: "eqlb_lu_solve_bm_reg_f64"}
+# dynamic shared memory one thread block of K3's shared route can hold:
+# D (D + R) values
 SMEM_LIMIT = 232448
+# K3's register route: route name -> (MR, MC), the register tile of each
+# thread of a block laid out 8 x 16 over [A | b]; a tile covers D <= 8 MR
+# rows and W = D + R <= 16 MC columns.  Smallest first: k3_plan takes the
+# first that covers the system.  The KKT shapes (R = 1) map 4 x 2 to
+# D <= 31, 7 x 4 to D = 32-56 and 8 x 5 to D = 57-64.  The same list is
+# EQLB_K3_REG_TILES in csrc/patch_solve.cu; the first launch checks that
+# the library was built with it.
+K3_REG_TILES = {"reg4x2": (4, 2), "reg7x4": (7, 4), "reg8x5": (8, 5)}
+K3_ROUTES = (*K3_REG_TILES, "shared")
+
+
+def _reg_covers(route: str, D: int, R: int) -> bool:
+    mr, mc = K3_REG_TILES[route]
+    return D <= 8 * mr and D + R <= 16 * mc
+
+
+def _shared_fits(D: int, R: int, dtype: torch.dtype) -> bool:
+    return D * (D + R) * dtype.itemsize <= SMEM_LIMIT
+
+
+def k3_plan(D: int, R: int, dtype: torch.dtype) -> str:
+    """K3's route for D x D systems with R right-hand sides: the smallest
+    register tile that covers [A | b] (``K3_REG_TILES``), else ``"shared"``
+    (the shared-memory kernel, up to ``SMEM_LIMIT`` bytes of [A | b]);
+    raises if neither takes the system."""
+    for route in K3_REG_TILES:
+        if _reg_covers(route, D, R):
+            return route
+    if _shared_fits(D, R, dtype):
+        return "shared"
+    raise ValueError(
+        f"D={D}, R={R} needs {D * (D + R) * dtype.itemsize} bytes of shared "
+        f"memory per system, more than the {SMEM_LIMIT} a thread block can "
+        f"hold")
 
 
 def batched_kkt_solve_bl_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -119,9 +162,33 @@ def batched_kkt_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     batch.
 
     CPU tensors take the plain version; CUDA tensors launch the K3 kernel
-    (``batched_kkt_solve.launches`` counts the launches), which holds one
-    augmented system [A | b] in a thread block's shared memory: D (D + R)
-    values may take at most ``SMEM_LIMIT`` bytes."""
+    of the route ``k3_plan(D, R, dtype)`` picks.
+    ``batched_kkt_solve.launches`` counts the launches,
+    ``batched_kkt_solve.launches_by_route`` splits them."""
+    return _solve_route(A, b, None)
+
+
+def _check_reg_tiles(lib) -> None:
+    """Raise unless the library's register tiles are ``K3_REG_TILES``."""
+    global _reg_tiles_checked
+    buf = (ctypes.c_int64 * (2 * len(K3_REG_TILES) + 2))()
+    n = lib.eqlb_lu_solve_bm_reg_tiles(ctypes.addressof(buf), len(buf))
+    built = [tuple(buf[2 * e:2 * e + 2]) for e in range(min(n, len(buf) // 2))]
+    if n != len(K3_REG_TILES) or built != list(K3_REG_TILES.values()):
+        raise RuntimeError(
+            f"the kernel library was built with register tiles {built} "
+            f"({n}), the wrapper plans {list(K3_REG_TILES.values())}")
+    _reg_tiles_checked = True
+
+
+_reg_tiles_checked = False
+
+
+def _solve_route(A: torch.Tensor, b: torch.Tensor,
+                 route: str | None) -> torch.Tensor:
+    """``batched_kkt_solve`` by ``route`` (one of ``K3_ROUTES`` that takes
+    the shape; None: ``k3_plan``'s), for comparing the routes on one
+    batch."""
     if A.dim() < 3 or A.dim() != b.dim() or A.shape[-1] != A.shape[-2] \
             or A.shape[:-1] != b.shape[:-1]:
         raise ValueError(
@@ -134,11 +201,13 @@ def batched_kkt_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (A.is_contiguous() and b.is_contiguous()):
         raise ValueError("A and b must be contiguous")
     D, R = b.shape[-2], b.shape[-1]
-    smem = D * (D + R) * A.element_size()
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"D={D}, R={R} needs {smem} bytes of shared memory per system, "
-            f"more than the {SMEM_LIMIT} a thread block can hold")
+    if route is None:
+        route = k3_plan(D, R, A.dtype)
+    elif route not in K3_ROUTES:
+        raise ValueError(f"unknown K3 route {route!r}; one of {K3_ROUTES}")
+    elif not (_shared_fits(D, R, A.dtype) if route == "shared"
+              else _reg_covers(route, D, R)):
+        raise ValueError(f"K3 route {route!r} does not take D={D}, R={R}")
     if A.device.type == "cpu":
         return batched_kkt_solve_plain(A, b)
     if A.device.type != "cuda":
@@ -149,11 +218,23 @@ def batched_kkt_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return x
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
-        fn = getattr(_build.library(), _FUNCS_BM[A.dtype])
-        _build.check(fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), N, D, R,
-                        stream), _FUNCS_BM[A.dtype])
+        lib = _build.library()
+        if route == "shared":
+            name = _FUNCS_BM[A.dtype]
+            code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
+                                      x.data_ptr(), N, D, R, stream)
+        else:
+            if not _reg_tiles_checked:
+                _check_reg_tiles(lib)
+            name = _FUNCS_BM_REG[A.dtype]
+            code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
+                                      x.data_ptr(), N, D, R,
+                                      *K3_REG_TILES[route], stream)
+        _build.check(code, name)
     batched_kkt_solve.launches += 1
+    batched_kkt_solve.launches_by_route[route] += 1
     return x
 
 
 batched_kkt_solve.launches = 0
+batched_kkt_solve.launches_by_route = dict.fromkeys(K3_ROUTES, 0)

@@ -5,6 +5,7 @@ K2 and K4, the dof combine and its double-single variant.  The CUDA kernels
 themselves run only on the card; ``chip_smoke.py`` holds them against these
 plain versions there."""
 
+import ctypes
 import os
 
 import jax.numpy as jnp
@@ -23,9 +24,14 @@ from dolfinx_eqlb_tpu_torch.ops.lane_select import (
     combine_gather, combine_gather_plain, ds_combine_gather,
     ds_combine_gather_plain,
 )
+from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine, k3_takes
+from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
+from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
+from dolfinx_eqlb_tpu_torch.mesh import unit_square, unit_square_unstructured
 from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
+    K3_REG_TILES, SMEM_LIMIT, _check_reg_tiles, _solve_route,
     batched_kkt_solve, batched_kkt_solve_bl, batched_kkt_solve_bl_plain,
-    batched_kkt_solve_plain,
+    batched_kkt_solve_plain, k3_plan,
 )
 
 torch.set_num_threads(2)
@@ -143,9 +149,11 @@ def _spd_batch_bm(lead, D, R, seed):
     return A, rng.normal(size=(*lead, D, R))
 
 
-@pytest.mark.parametrize("D", [16, 28, 56])
+@pytest.mark.parametrize("D", [16, 28, 32, 33, 56, 64, 65])
 def test_k3_plain_matches_pallas_and_linalg(D):
-    """Leading axes (2, P) are folded, as the KKT mode's (n_rhs, P)."""
+    """Leading axes (2, P) are folded, as the KKT mode's (n_rhs, P).  D = 32,
+    33, 64 and 65 sit on the boundaries of K3's register tiles and of its
+    register route."""
     A, b = _spd_batch_bm((2, 9), D, 1, seed=D)
     x_jax = np.asarray(jax_k3(jnp.asarray(A, jnp.float64),
                               jnp.asarray(b, jnp.float64)))
@@ -166,6 +174,92 @@ def test_k3_wrapper_on_cpu_is_the_plain_version():
                                batched_kkt_solve_plain(At, bt),
                                rtol=0, atol=0)
     assert batched_kkt_solve.launches == before  # no kernel launch on CPU
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("R", [1, 2])
+def test_k3_plan_covers_every_size(R, dtype):
+    """Every D of the KKT size rule (D <= 110) has a route: a register tile
+    of at most 40 values a thread covering all D rows and D + R columns of
+    the 8 x 16 thread layout, the smallest that does, for D <= 64; above,
+    the shared-memory route within its limit."""
+    tiles = list(K3_REG_TILES.values())
+    assert all(mr * mc <= 40 for mr, mc in tiles)
+    for D in range(1, 111):
+        route = k3_plan(D, R, dtype)
+        if D <= 64:
+            mr, mc = K3_REG_TILES[route]
+            assert D <= 8 * mr and D + R <= 16 * mc, (D, route)
+            smaller = tiles[:tiles.index((mr, mc))]
+            assert not any(D <= 8 * a and D + R <= 16 * c for a, c in smaller)
+        else:
+            assert route == "shared", (D, route)
+            assert D * (D + R) * dtype.itemsize <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("mesh", ["crossed", "unstructured"])
+def test_k3_plan_takes_kkt_shapes_on_registers(mesh, k):
+    """The KKT systems of the KKT tests' meshes that K3 takes
+    (``k3_takes``) go to a register tile whenever D <= 64."""
+    msh = unit_square(3) if mesh == "crossed" else unit_square_unstructured(4)
+    eng = EqlbEngine(FunctionSpace(msh, "RT", k), build_patches(msh),
+                     dtype=torch.float64, device="cpu")
+    sizes = {eng.kkt_size(key)[0] for key in eng.buckets}
+    taken = [D for D in sorted(sizes) if k3_takes(D)]
+    assert taken
+    for D in taken:
+        for dtype in (torch.float32, torch.float64):
+            route = k3_plan(D, 1, dtype)
+            assert (route in K3_REG_TILES) == (D <= 64), (D, route)
+
+
+def test_k3_wrapper_routes_on_cpu():
+    """On CPU tensors every route the shape admits is the plain version; a
+    route that cannot take the shape, or an unknown one, raises."""
+    A, b = _spd_batch_bm((3,), 20, 2, seed=4)
+    At, bt = torch.tensor(A), torch.tensor(b)
+    before = dict(batched_kkt_solve.launches_by_route)
+    ref = batched_kkt_solve_plain(At, bt)
+    for route in ("reg4x2", "reg8x5", "shared"):
+        torch.testing.assert_close(_solve_route(At, bt, route),
+                                   ref, rtol=0, atol=0)
+    assert batched_kkt_solve.launches_by_route == before
+    with pytest.raises(ValueError):  # 16 + 17 columns exceed the 4 x 2 tile
+        _solve_route(At[..., :16, :16].contiguous(),
+                     torch.zeros(3, 16, 17, dtype=torch.float64), "reg4x2")
+    with pytest.raises(ValueError):
+        _solve_route(At, bt, "reg9x9")
+
+
+class _TileLib:
+    """Stands in for the kernel library's register-tile query."""
+
+    def __init__(self, tiles):
+        self.tiles = tiles
+
+    def eqlb_lu_solve_bm_reg_tiles(self, addr, cap):
+        flat = [v for tile in self.tiles for v in tile]
+        out = (ctypes.c_int64 * cap).from_address(addr)
+        for e, v in enumerate(flat[:cap]):
+            out[e] = v
+        return len(self.tiles)
+
+
+@pytest.mark.parametrize("tiles,ok", [
+    (list(K3_REG_TILES.values()), True),
+    ([(4, 2), (4, 3), (7, 4), (8, 5)], False),  # a tile the plan lacks
+    ([(4, 2), (8, 5)], False),  # a tile the plan names is not built
+    ([(7, 4), (4, 2), (8, 5)], False),  # another order
+])
+def test_k3_reg_tile_check(tiles, ok):
+    """The register route's first launch holds the library's built tiles
+    against ``K3_REG_TILES`` and raises on any difference."""
+    if ok:
+        _check_reg_tiles(_TileLib(tiles))
+    else:
+        with pytest.raises(RuntimeError):
+            _check_reg_tiles(_TileLib(tiles))
 
 
 def test_k3_wrapper_rejects_bad_args():
