@@ -22,10 +22,15 @@ Phases, one line each:
    1. the card's name and power limit (``nvidia-smi``);
    2. the nvcc build and its time;
    3. the host precompute: mesh, patches, engine tables;
-   4. K1 (batch-last pivot-free solve) against its plain version;
+   4. K1 (batch-last pivot-free solve) by both routes, "tile" (the
+      ``k1_plan`` pick up to its split) and "global", on the same batch,
+      timed in turns, against its plain version, at the main path's
+      shapes, the mixed path's chunk and RT3's; then each route once at a
+      small batch on each side of the split;
    5. K2 (dof combine) against its plain version, bitwise;
    6. the semi-explicit main path: first call, 5 strict calls, 3 x 8
-      pipelined calls, launch counts, output checks, a stage breakdown;
+      pipelined calls, launch counts (K1's by route), output checks, a
+      stage breakdown, the interior inverse build alone by both K1 routes;
    7. f64 parity on ``unit_square(64)``: card (kernels) against the CPU
       (plain versions);
    8. K3 (batch-major pivot-free solve) against its plain version, by the
@@ -35,8 +40,9 @@ Phases, one line each:
    9. the KKT path, f64 and f32, against the f64 plain route, with K3's
       launches split by route;
   10. K4 (double-single combine) against its plain version, bitwise;
-  11. the mixed-precision path against the f64 plain route, and the
-      native-f64 kernel route on the same tables.
+  11. the mixed-precision path against the f64 plain route (K1's
+      launches by route), and the native-f64 kernel route on the same
+      tables.
 
 Kernel times are CUDA-event means of single launches, each after a write
 of 256 MB that leaves the 50 MB L2 cold.  Any failure exits non-zero;
@@ -254,45 +260,160 @@ def solve_shapes(engine):
     return shapes
 
 
-def phase_k1(shapes, device, timer):
-    """K1 against its plain version on random SPD batches; the library
-    call is torch.linalg.solve on the same batch."""
+def k1_shape_sets(engine, k3_shapes):
+    """The shapes phase 4 takes K1 through, (set, D, R, X): the main path's
+    (``solve_shapes``), the mixed path's chunk (its interior shapes at
+    X = ``CHUNK_MIXED``) and RT3's (``k3_shapes``, the D and R of an RT3
+    engine's buckets at the main path's chunk)."""
+    main = solve_shapes(engine)
+    mixed = [(D, R, CHUNK_MIXED) for D, R, X in main
+             if R > 1 and X >= CHUNK_MIXED]
+    return ([("main", *s) for s in main]
+            + [("mixed", *s) for s in dict.fromkeys(mixed)]
+            + [("rt3", D, R, CHUNK) for D, R in k3_shapes])
+
+
+def rt3_solve_sizes(device):
+    """(D, R) of every K1 call an RT3 engine's main path makes, from its
+    ``se_static`` on a small crossed mesh (the sizes do not grow with the
+    mesh)."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
+    from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
+    from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
+    from dolfinx_eqlb_tpu_torch.mesh import unit_square
+
+    msh = unit_square(4)
+    eng = EqlbEngine(FunctionSpace(msh, "RT", 3), build_patches(msh),
+                     dtype=torch.float32, device=device)
+    return sorted({(eng.se_static[key]["Dz"],
+                    1 if b.is_boundary else eng.se_static[key]["Dz"])
+                   for key, b in eng.buckets.items()}, reverse=True)
+
+
+def phase_k1(shape_sets, device, timer):
+    """K1's A/B: at every shape, both routes ("tile", "global") on the same
+    random SPD batch, checked against the plain version and timed in turns
+    (tile, global, global, tile), beside the plain version, the library
+    call (torch.linalg.solve on the same batch) and the bound.  Then each
+    route once at a small batch on each side of the tile route's split
+    ``K1_TILE_MAX_D``, checked and not timed."""
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
-        batched_kkt_solve_bl, batched_kkt_solve_bl_plain,
+        K1_TILE_MAX_D, _solve_route_bl, batched_kkt_solve_bl_plain,
+        k1_plan, k1_tile_threads,
     )
 
     gen = torch.Generator(device=device).manual_seed(0)
-    rows = []
+    rows, edges = [], []
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
-        for D, R, X in shapes:
+        for name, D, R, X in shape_sets:
             Abm, bbm = spd_batch(X, D, R, dtype, device, gen)
             A = Abm.permute(1, 2, 0).contiguous()
             b = bbm.permute(1, 2, 0).contiguous()
-            x = batched_kkt_solve_bl(A, b)
+            del Abm, bbm
             xp = batched_kkt_solve_bl_plain(A, b)
-            sync(device)
-            err = float((x - xp).abs().max())
-            rel = err / float(xp.abs().max())
-            ms = timer.ms(lambda: batched_kkt_solve_bl(A, b))
-            plain_ms = timer.ms(lambda: batched_kkt_solve_bl_plain(A, b),
-                                reps=3, warmup=1)
-            library_ms = timer.ms(
+            scale = float(xp.abs().max())
+            route = k1_plan(D, R, dtype)
+            row = dict(set=name, dtype=dname(dtype), D=D, R=R, X=X,
+                       route=route, ok=True)
+            for rt in ("tile", "global"):
+                x = _solve_route_bl(A, b, rt)
+                sync(device)
+                err = float((x - xp).abs().max())
+                row[f"{rt}_max_abs_err"] = err
+                row[f"{rt}_max_rel_err"] = err / scale
+                row["ok"] &= bool(torch.isfinite(x).all()) and err / scale <= tol
+                del x
+            del xp
+            t = {"tile": [], "global": []}
+            for rt in ("tile", "global", "global", "tile"):
+                t[rt].append(timer.ms(lambda: _solve_route_bl(A, b, rt),
+                                      reps=5))
+            row["tile_ms"] = sum(t["tile"]) / 2
+            row["global_ms"] = sum(t["global"]) / 2
+            row["ms"] = row[f"{route}_ms"]
+            row["max_abs_err"] = row[f"{route}_max_abs_err"]
+            row["plain_ms"] = timer.ms(lambda: batched_kkt_solve_bl_plain(A, b),
+                                       reps=3, warmup=1)
+            row["library_ms"] = timer.ms(
                 lambda: torch.linalg.solve(A.permute(2, 0, 1),
                                            b.permute(2, 0, 1)),
                 reps=3, warmup=1)
-            bound_ms, bound_by = lu_bound(D, R, X, dtype)
-            ok = bool(torch.isfinite(x).all()) and rel <= tol
-            rows.append(dict(dtype=dname(dtype), D=D, R=R, X=X,
-                             max_abs_err=err, max_rel_err=rel, ms=ms,
-                             plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by, ok=ok))
-            log(f"    K1 {dname(dtype)} D={D} R={R} X={X}: "
-                f"max_rel_err={rel:.3e} (limit {tol:g}) kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, torch.linalg.solve "
-                f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
-                f"{'' if ok else '  FAILED'}")
-            del A, b, Abm, bbm, x, xp
-    return rows
+            row["bound_ms"], row["bound_by"] = lu_bound(D, R, X, dtype)
+            row["tile_threads"] = k1_tile_threads(D, dtype)
+            rows.append(row)
+            log(f"    K1 {name} {dname(dtype)} D={D} R={R} X={X}: tile "
+                f"{row['tile_ms']:.4f} ms (max_rel_err "
+                f"{row['tile_max_rel_err']:.3e}, {row['tile_threads']} "
+                f"systems a block), global {row['global_ms']:.4f} ms "
+                f"(max_rel_err {row['global_max_rel_err']:.3e}), limit "
+                f"{tol:g}; plan {route}; plain {row['plain_ms']:.4f} ms, "
+                f"torch.linalg.solve {row['library_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), share "
+                f"{row['bound_ms'] / row['ms']:.3f}, tile/global "
+                f"{row['global_ms'] / row['tile_ms']:.2f}x"
+                f"{'' if row['ok'] else '  FAILED'}")
+            del A, b
+        split = K1_TILE_MAX_D[dtype]
+        for D in (split, split + 1):
+            Abm, bbm = spd_batch(4096, D, D, dtype, device, gen)
+            A = Abm.permute(1, 2, 0).contiguous()
+            b = bbm.permute(1, 2, 0).contiguous()
+            xp = batched_kkt_solve_bl_plain(A, b)
+            for rt in ("tile", "global"):
+                if rt == "tile" and k1_tile_threads(D, dtype) is None:
+                    continue
+                x = _solve_route_bl(A, b, rt)
+                sync(device)
+                rel = float((x - xp).abs().max()) / float(xp.abs().max())
+                ok = bool(torch.isfinite(x).all()) and rel <= tol
+                edges.append(dict(dtype=dname(dtype), D=D, R=D, X=4096,
+                                  route=rt, plan=k1_plan(D, D, dtype),
+                                  max_rel_err=rel, ok=ok))
+                log(f"    K1 split check {dname(dtype)} D={D} R={D} X=4096: "
+                    f"{rt} (plan {k1_plan(D, D, dtype)}) max_rel_err="
+                    f"{rel:.3e} (limit {tol:g}){'' if ok else '  FAILED'}")
+                del x
+            del A, b, Abm, bbm, xp
+    return rows, edges
+
+
+def check_k1_routes(path, by_route, shapes, dtype, failures):
+    """Fail on a K1 launch by a route that ``k1_plan`` does not pick for
+    the path's shapes."""
+    from dolfinx_eqlb_tpu_torch.ops.patch_solve import k1_plan
+
+    planned = {k1_plan(D, R, dtype) for D, R, _ in shapes}
+    stray = {rt: n for rt, n in by_route.items() if n and rt not in planned}
+    if stray:
+        failures.append(f"{path} launched K1 routes its shapes do not plan "
+                        f"({planned}): {stray}")
+
+
+def inverse_build_ms(engine, device, route=None) -> float:
+    """The interior buckets' inverse build alone, as ``_device_tables``
+    makes it (K1 with R = D on the cached A_z), host clock around
+    synchronised builds, best of 3; ``route`` forces a K1 route."""
+    from dolfinx_eqlb_tpu_torch.ops.patch_solve import _solve_route_bl
+
+    dev, _ = engine._device_tables()
+    best = float("inf")
+    for _ in range(3):
+        sync(device)
+        t0 = time.perf_counter()
+        for key in sorted(engine.buckets):
+            if engine.buckets[key].is_boundary:
+                continue
+            Az = dev[key]["Az_bl"]
+            Dz, _, P = Az.shape
+            eye = torch.eye(Dz, dtype=Az.dtype, device=device)[:, :, None]
+            eye = eye.expand(Dz, Dz, P).contiguous()
+            if route is None:
+                engine._dense_solve_bl(Az, eye)
+            else:
+                _solve_route_bl(Az, eye, route)
+        sync(device)
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
 
 
 def phase_combine(name, src_np, nfk, L, dtypes, device, timer, seed):
@@ -366,6 +487,8 @@ def phase_main(engine, data, device, profile=False):
     def call():
         return engine.equilibrate(dpT, drT, fk, bv, transposed_inputs=True)
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
     t0 = time.perf_counter()
     engine._device_tables()
@@ -373,7 +496,12 @@ def phase_main(engine, data, device, profile=False):
     res["geometry_caches_s"] = time.perf_counter() - t0
     x, timing = drive(call, device)
     res["launches"] = read_launches()
+    res["k1_launches_by_route"] = dict(
+        kernel_wrappers()["K1"].launches_by_route)
     res.update(timing)
+    res["inverse_build_ms"] = inverse_build_ms(engine, device)
+    res["inverse_build_global_ms"] = inverse_build_ms(engine, device,
+                                                      "global")
     res["patches"] = npatches
     res["patches_per_s_strict"] = npatches / (res["strict_ms_median"] / 1e3)
     res["patches_per_s_pipelined"] = npatches / (res["pipelined_ms_min"] / 1e3)
@@ -697,6 +825,9 @@ def phase_mixed(V, buckets, msh, device):
         lambda: engm.equilibrate(dpT, drT, fk, bv, transposed_inputs=True),
         device)
     res["launches"] = read_launches()
+    res["k1_launches_by_route"] = dict(
+        kernel_wrappers()["K1"].launches_by_route)
+    res["k1_shapes"] = solve_shapes(engm)
     res.update(timing)
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     res["chunks"] = len(engm.buckets)
@@ -802,9 +933,11 @@ def main(argv=None) -> int:
         f"library loaded: {native.available()}")
 
     shapes = solve_shapes(engine)
-    log(f"[4/{nph}] K1 vs plain at the main path's shapes {shapes}:")
-    k1 = phase_k1(shapes, device, timer)
-    if not all(r["ok"] for r in k1):
+    shape_sets = k1_shape_sets(engine, rt3_solve_sizes(device))
+    log(f"[4/{nph}] K1 (both routes) vs plain at the main path's shapes "
+        f"{shapes}, the mixed path's chunk and RT3's:")
+    k1, k1_edges = phase_k1(shape_sets, device, timer)
+    if not all(r["ok"] for r in k1 + k1_edges):
         failures.append("K1 disagrees with its plain version")
 
     log(f"[5/{nph}] K2 vs plain on the engine's combine tables:")
@@ -823,7 +956,10 @@ def main(argv=None) -> int:
         f"({main_res['patches_per_s_strict']:.4g} patches/s), pipelined "
         f"{main_res['pipelined_ms_min']:.3f} ms "
         f"({main_res['patches_per_s_pipelined']:.4g} patches/s); launches "
-        f"{launches}; finite {main_res['finite']}; max|x - plain| "
+        f"{launches}, K1 by route {main_res['k1_launches_by_route']}; "
+        f"interior inverse build {main_res['inverse_build_ms']:.3f} ms "
+        f"(global route {main_res['inverse_build_global_ms']:.3f} ms); "
+        f"finite {main_res['finite']}; max|x - plain| "
         f"{main_res['max_abs_err_vs_plain']:.3e} (limit "
         f"{main_res['err_limit']:.3e})")
     log("    detail: " + json.dumps(
@@ -837,6 +973,8 @@ def main(argv=None) -> int:
                 f"events)")
     if launches["K1"] <= 0 or launches["K2"] <= 0:
         failures.append(f"main path skipped a kernel: {launches}")
+    check_k1_routes("main path", main_res["k1_launches_by_route"], shapes,
+                    torch.float32, failures)
     if not (main_res["shape_ok"] and main_res["finite"]):
         failures.append("main path output has a wrong shape or non-finite")
     if not main_res["max_abs_err_vs_plain"] <= main_res["err_limit"]:
@@ -902,7 +1040,8 @@ def main(argv=None) -> int:
         f"{mixed['first_call_s']:.3f} s (geometry caches "
         f"{mixed['geometry_caches_s']:.3f} s); strict "
         f"{mixed['strict_ms_median']:.3f} ms median, pipelined "
-        f"{mixed['pipelined_ms_min']:.3f} ms; launches {mixed['launches']}; "
+        f"{mixed['pipelined_ms_min']:.3f} ms; launches {mixed['launches']}, "
+        f"K1 by route {mixed['k1_launches_by_route']}; "
         f"max|x - plain f64| {mixed['max_abs_err_vs_plain_f64']:.3e} (limit "
         f"{mixed['err_limit']:.3e}); native f64 kernel + gather "
         f"{mixed['route_kernel_gather']}; kernel_mixed + gather "
@@ -913,6 +1052,9 @@ def main(argv=None) -> int:
         failures.append("mixed path disagrees with the f64 plain route")
     if mixed["launches"]["K1"] <= 0 or mixed["launches"]["K4"] <= 0:
         failures.append(f"mixed path skipped a kernel: {mixed['launches']}")
+    # the mixed path runs K1 in f32
+    check_k1_routes("mixed path", mixed["k1_launches_by_route"],
+                    mixed["k1_shapes"], torch.float32, failures)
 
     if failures:
         for f in failures:
@@ -929,10 +1071,12 @@ def main(argv=None) -> int:
         return max((r for r in rows if r["dtype"] == dtype),
                    key=lambda r: r["D"] * r["D"] * r["X"])
 
+    # K1's numbers are those of the main path's largest shape by its
+    # planned route; the global route beside them
+    k1_row = biggest([r for r in k1 if r["set"] == "main"], "float32")
     entries = [
         kernel_entry("K1 batched_kkt_solve_bl", K1_SOURCE, K1_REPLACES,
-                     total("K1"), biggest(k1, "float32"),
-                     [r["max_abs_err"] for r in k1]),
+                     total("K1"), k1_row, [r["max_abs_err"] for r in k1]),
         kernel_entry("K2 combine_gather", K2_SOURCE, K2_REPLACES,
                      total("K2"), next(r for r in k2 if r["dtype"] == "float32"),
                      [r["max_abs_err"] for r in k2]),
@@ -945,6 +1089,11 @@ def main(argv=None) -> int:
     for entry in entries:
         entry["launches_by_path"] = {
             name: p[entry["name"][:2]] for name, p in paths.items()}
+    entries[0].update(
+        k1_route=k1_row["route"], global_ms=k1_row["global_ms"],
+        global_max_abs_err=max(r["global_max_abs_err"] for r in k1),
+        launches_by_route={"semiexplicit_f32": main_res["k1_launches_by_route"],
+                           "mixed_f64": mixed["k1_launches_by_route"]})
     # K3's numbers are its register route's; the shared route beside them
     k3_row = biggest(k3, "float64")
     entries[2].update(

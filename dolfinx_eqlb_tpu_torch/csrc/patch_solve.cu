@@ -11,20 +11,34 @@
 //
 // What bounds it on the card: memory traffic.  Each system does O(D^3)
 // multiply-adds on O(D^2) values, so at the main path's D <= 9 the work per
-// byte is tiny.  Design: one thread per system.  The batch is the minor
-// axis, so element (i, c) of system p sits at (i * D + c) * X + p and
-// neighbouring threads touch neighbouring addresses on every access — the
-// batch-last layout coalesces with no relayout.  The kernel copies A into a
-// scratch buffer and b into the output, then eliminates in place in global
-// memory (served mostly from L1/L2).  The TPU kernel's pad of D to a
-// multiple of 8 was a Mosaic unroll artefact and is dropped; any D works.
-// Holding the system in registers or shared memory is later work.
+// byte is tiny: the solve must read A and b once and write x once,
+// D^2 + 2 D R values per system.  The batch is the minor axis, so element
+// (i, c) of system p sits at (i * D + c) * X + p and neighbouring systems
+// sit at neighbouring addresses — the batch-last layout coalesces with no
+// relayout.  Two routes, one thread per system in both; the wrapper picks
+// one (ops/patch_solve.py::k1_plan):
+//
+// * "global" (lu_solve_bl_kernel): copies A into a global
+//   scratch buffer and b into the output, then eliminates in place in
+//   global memory, every update a read-modify-write through L1/L2 with
+//   int64 index arithmetic.  It takes any D, and serves the sizes the tile
+//   route does not take.
+// * "tile" (lu_solve_bl_tile_kernel, below): each block's systems staged in
+//   shared memory, factored once, right-hand sides swept a column at a
+//   time; A is read once, b read once, x written once and nothing else
+//   leaves the chip.
+//
+// The TPU kernel's pad of D to a multiple of 8 was a Mosaic unroll artefact
+// and is dropped; any D works.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use
 
 template <typename T>
 __global__ void lu_solve_bl_kernel(const T* __restrict__ A,
@@ -71,6 +85,180 @@ int launch(const void* A, const void* b, void* As, void* x, int64_t D,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1, tile route: the same batch-last solve, each block's systems staged in
+// shared memory.
+//
+// Replaces the same Pallas kernel as the global route above.  What held the
+// global route at ~9 % of its bound on the H100 (D = 9, R = 9): a global
+// scratch of the size of A written and read back before any work, every
+// elimination update a read-modify-write of a working set far larger than
+// L1, and int64 index arithmetic on runtime D and R with no loop unrolled.
+// Design: a block of NT systems, one thread each, no barrier anywhere — a
+// thread touches only its own system.
+// - Stage: the thread copies its A into dynamic shared memory with 4- or
+//   8-byte cp.async (rows of the batch-last arrays start misaligned at an
+//   odd X, so no 16-byte copy), entry e at S[e * NT + t]: row e of the
+//   batch-last array, systems p0 ... p0 + NT, is one coalesced read, and
+//   with t the fastest index the shared accesses are free of bank
+//   conflicts in f32 and f64 (a system laid out contiguously, stride D^2,
+//   would conflict at D = 4, 8, 12, 16).  Column 0 of b is read into
+//   registers while A arrives.
+// - Factor in place: for j ascending and each i > j, l = S[i, j] / S[j, j]
+//   (the plain version's division), stored over S[i, j], then the trailing
+//   row update.  No global scratch.
+// - Sweep: for each right-hand side r, column r of b is held in registers
+//   (y[DMAX], loops unrolled to the template bound DMAX, so the array never
+//   goes to local memory; each unrolled loop leaves at D by a branch that
+//   is uniform across the block, so a system smaller than DMAX issues no
+//   masked work), forward-substituted with the stored multipliers (j
+//   ascending: the plain version's fused forward step, operation for
+//   operation), back-substituted with U (c ascending, then the division by
+//   the pivot) and written as column r of x.
+// NT is a compile-time constant of each (dtype, DMAX) tile, so every
+// shared access is a row base plus an immediate offset: with a runtime NT
+// ptxas hoisted the sweep's addresses out of the column loop and spilled
+// in f64.  Each tile's NT and register budget (__launch_bounds__ minimum
+// blocks) are set so that its smallest systems keep several blocks on an
+// SM; shared memory, D^2 NT values a block, is what bounds the larger ones.
+// On-chip state is D^2 + D values per system whatever R is, which is what
+// the interior inverse build (R = D) needs.  The wrapper caps D per dtype
+// (k1_plan, from H100 measurements in PERF.md) and takes the global route
+// above it.
+
+// one cp.async of a single value (4 or 8 bytes) into shared memory
+template <typename T>
+__device__ __forceinline__ void cp_async_value(T* dst, const T* src) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "cp.async copies 4 or 8");
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(static_cast<int>(sizeof(T)))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <typename T, int DMAX, int NT, int kMinBlocks>
+__global__ void __launch_bounds__(NT, kMinBlocks)
+lu_solve_bl_tile_kernel(const T* __restrict__ A, const T* __restrict__ b,
+                        T* __restrict__ x, int D, int R, int64_t X) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x;
+  if (p >= X) return;
+  T* S = reinterpret_cast<T*>(smem) + threadIdx.x;  // entry e at S[e * NT]
+  const int rs = D * NT;  // row stride of S
+
+  {
+    const T* src = A + p;
+    for (int e = 0; e < D * D; ++e, src += X) cp_async_value(S + e * NT, src);
+  }
+  const int64_t RX = static_cast<int64_t>(R) * X;  // row stride of b and x
+  const T* bp = b + p;
+  T y[DMAX];
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) {
+    if (i >= D) break;
+    y[i] = bp[i * RX];
+  }
+  cp_async_wait_all();
+
+  // factor: multipliers below the diagonal, U on and above it
+  for (int j = 0; j < D; ++j) {
+    const T* Sj = S + j * rs;
+    const T piv = Sj[j * NT];
+    for (int i = j + 1; i < D; ++i) {
+      T* Si = S + i * rs;
+      const T l = Si[j * NT] / piv;
+      Si[j * NT] = l;
+      for (int c = j + 1; c < D; ++c) Si[c * NT] -= l * Sj[c * NT];
+    }
+  }
+
+  T* xp = x + p;
+  for (int r = 0; r < R; ++r) {
+    if (r > 0) {
+#pragma unroll
+      for (int i = 0; i < DMAX; ++i) {
+        if (i >= D) break;
+        y[i] = bp[r * X + i * RX];
+      }
+    }
+    // forward substitution, j ascending
+#pragma unroll
+    for (int j = 0; j < DMAX - 1; ++j) {
+      if (j + 1 >= D) break;
+#pragma unroll
+      for (int i = j + 1; i < DMAX; ++i) {
+        if (i >= D) break;
+        y[i] -= S[i * rs + j * NT] * y[j];
+      }
+    }
+    // back substitution, j descending from D - 1
+#pragma unroll
+    for (int j = DMAX - 1; j >= 0; --j) {
+      if (j < D) {
+        T acc = 0;
+#pragma unroll
+        for (int c = j + 1; c < DMAX; ++c) {
+          if (c >= D) break;
+          acc += S[j * rs + c * NT] * y[c];
+        }
+        y[j] = (y[j] - acc) / S[j * rs + j * NT];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      if (i >= D) break;
+      xp[r * X + i * RX] = y[i];
+    }
+  }
+}
+
+template <typename T, int DMAX, int NT, int kMinBlocks>
+int launch_bl_tile_dmax(const void* A, const void* b, void* x, int64_t D,
+                        int64_t R, int64_t X, cudaStream_t stream) {
+  const int64_t smem = D * D * NT * static_cast<int64_t>(sizeof(T));
+  const int64_t blocks = (X + NT - 1) / NT;
+  if (smem > kMaxSmem || blocks > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = lu_solve_bl_tile_kernel<T, DMAX, NT, kMinBlocks>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(blocks), NT, static_cast<size_t>(smem),
+           stream>>>(static_cast<const T*>(A), static_cast<const T*>(b),
+                     static_cast<T*>(x), static_cast<int>(D),
+                     static_cast<int>(R), X);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiles built, (type, DMAX, NT, minimum blocks per SM), by type and
+// DMAX ascending: the one list of them in C.  A launch takes the first tile
+// of its type with D <= DMAX.  ops/patch_solve.py::K1_TILES names the same
+// (DMAX, NT) pairs, and the wrapper holds them against
+// eqlb_lu_solve_bl_tiles before the tile route's first launch.
+#define EQLB_K1_TILES(X)                                            \
+  X(float, 8, 128, 8) X(float, 16, 64, 12) X(float, 32, 32, 4)      \
+  X(double, 8, 64, 12) X(double, 16, 32, 10) X(double, 32, 32, 1)
+
+template <typename T>
+int launch_bl_tile(const void* A, const void* b, void* x, int64_t D,
+                   int64_t R, int64_t X, int64_t nt, void* stream) {
+  if (X <= 0 || D < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+#define EQLB_K1_DISPATCH(TYPE, DMAX, NT, MINB)                            \
+  if (std::is_same<T, TYPE>::value && D <= DMAX)                          \
+    return nt == NT ? launch_bl_tile_dmax<TYPE, DMAX, NT, MINB>(          \
+                          A, b, x, D, R, X, s)                            \
+                    : static_cast<int>(cudaErrorInvalidValue);
+  EQLB_K1_TILES(EQLB_K1_DISPATCH)
+#undef EQLB_K1_DISPATCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // K3: the same pivot-free solve, batch-major, one thread block per system.
 //
 // Replaces the Pallas TPU kernel's batch-major entry
@@ -95,7 +283,6 @@ int launch(const void* A, const void* b, void* As, void* x, int64_t D,
 // wgmma and TMA are later work.
 
 constexpr int kBmWarps = 4;  // blockDim = (32, kBmWarps)
-constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use
 
 template <typename T>
 __global__ void __launch_bounds__(32 * kBmWarps)
@@ -392,6 +579,31 @@ int eqlb_lu_solve_bl_f32(const void* A, const void* b, void* As, void* x,
 int eqlb_lu_solve_bl_f64(const void* A, const void* b, void* As, void* x,
                          int64_t D, int64_t R, int64_t X, void* stream) {
   return launch<double>(A, b, As, x, D, R, X, stream);
+}
+
+int eqlb_lu_solve_bl_tile_f32(const void* A, const void* b, void* x,
+                              int64_t D, int64_t R, int64_t X, int64_t nt,
+                              void* stream) {
+  return launch_bl_tile<float>(A, b, x, D, R, X, nt, stream);
+}
+
+int eqlb_lu_solve_bl_tile_f64(const void* A, const void* b, void* x,
+                              int64_t D, int64_t R, int64_t X, int64_t nt,
+                              void* stream) {
+  return launch_bl_tile<double>(A, b, x, D, R, X, nt, stream);
+}
+
+// writes up to cap values BYTES0, DMAX0, NT0, BYTES1, ... of the tile
+// route's built tiles to out (BYTES: 4 float, 8 double) and returns the
+// number of tiles
+int eqlb_lu_solve_bl_tiles(int64_t* out, int64_t cap) {
+#define EQLB_K1_VALUES(TYPE, DMAX, NT, MINB) \
+  static_cast<int64_t>(sizeof(TYPE)), DMAX, NT,
+  const int64_t tiles[] = {EQLB_K1_TILES(EQLB_K1_VALUES)};
+#undef EQLB_K1_VALUES
+  constexpr int64_t n = sizeof(tiles) / sizeof(tiles[0]);
+  for (int64_t e = 0; e < n && e < cap; ++e) out[e] = tiles[e];
+  return static_cast<int>(n / 3);
 }
 
 int eqlb_lu_solve_bm_f32(const void* A, const void* b, void* x, int64_t N,

@@ -44,6 +44,11 @@ _SIGNATURES = {
     # (A, b, As scratch, x, D, R, X, stream)
     "eqlb_lu_solve_bl_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "eqlb_lu_solve_bl_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # (A, b, x, D, R, X, nt, stream): K1's tile route, nt systems a block
+    "eqlb_lu_solve_bl_tile_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "eqlb_lu_solve_bl_tile_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # (out, cap): the tile route's built tiles, BYTES0, DMAX0, NT0, ...
+    "eqlb_lu_solve_bl_tiles": [_P, _I],
     # (flat, src, out, R, L, ndofs, nfk, stream)
     "eqlb_combine_gather_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "eqlb_combine_gather_f64": [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -7,7 +7,11 @@ and how its design answers.
 
 * K1, ``batched_kkt_solve_bl`` (entry ``batched_kkt_solve_bl``): batch-last
   A (D, D, X), the semi-explicit engine's small reduced systems; one thread
-  per system, batch-last so every access coalesces.
+  per system, batch-last so every access coalesces, by one of two routes
+  that ``k1_plan`` picks from the shape: up to ``K1_TILE_MAX_D`` the tile
+  route (each block's systems staged in shared memory, factored once, the
+  right-hand sides swept a column at a time in registers), else the global
+  route (elimination in place in a global scratch, any D).
 * K3, ``batched_kkt_solve`` (entry ``batched_kkt_solve``): batch-major
   A (..., P, D, D), the KKT mode's full patch systems, D in the tens; one
   thread block per system, by one of two routes that ``k3_plan`` picks
@@ -35,19 +39,40 @@ import torch
 
 from . import _build
 
-__all__ = ["batched_kkt_solve_bl", "batched_kkt_solve_bl_plain",
+__all__ = ["batched_kkt_solve_bl", "batched_kkt_solve_bl_plain", "k1_plan",
+           "k1_tile_threads", "K1_ROUTES", "K1_TILES", "K1_TILE_MAX_D",
            "batched_kkt_solve", "batched_kkt_solve_plain", "k3_plan",
            "K3_REG_TILES", "K3_ROUTES"]
 
 _FUNCS = {torch.float32: "eqlb_lu_solve_bl_f32",
           torch.float64: "eqlb_lu_solve_bl_f64"}
+_FUNCS_BL_TILE = {torch.float32: "eqlb_lu_solve_bl_tile_f32",
+                  torch.float64: "eqlb_lu_solve_bl_tile_f64"}
 _FUNCS_BM = {torch.float32: "eqlb_lu_solve_bm_f32",
              torch.float64: "eqlb_lu_solve_bm_f64"}
 _FUNCS_BM_REG = {torch.float32: "eqlb_lu_solve_bm_reg_f32",
                  torch.float64: "eqlb_lu_solve_bm_reg_f64"}
-# dynamic shared memory one thread block of K3's shared route can hold:
-# D (D + R) values
+# dynamic shared memory one thread block can hold: D (D + R) values of
+# K3's shared route, D^2 nt values of K1's tile route
 SMEM_LIMIT = 232448
+# K1's routes: "tile" (systems staged in shared memory, the column in
+# registers) and "global" (elimination in place in a global scratch)
+K1_ROUTES = ("tile", "global")
+# K1's tile route: dtype -> its tiles (DMAX, NT), DMAX ascending.  A
+# system of D <= DMAX holds its right-hand-side column in DMAX registers,
+# and a block holds NT systems (one thread each), so shared memory is
+# D^2 NT values a block; a launch takes the first tile with D <= DMAX.  NT
+# is set so that several blocks share an SM at the tile's smaller D.  The
+# same list is EQLB_K1_TILES in csrc/patch_solve.cu; the first launch
+# checks that the library was built with it.
+K1_TILES = {torch.float32: ((8, 128), (16, 64), (32, 32)),
+            torch.float64: ((8, 64), (16, 32), (32, 32))}
+# the split: the largest D the tile route takes, by dtype; larger systems
+# take the global route.  On the H100 the tile route is ahead at every
+# RT2 and RT3 size up to RT3's largest, D = 25 (level with the global
+# route there in f64); above it nothing was measured at full size
+# (PERF.md).
+K1_TILE_MAX_D = {torch.float32: 25, torch.float64: 25}
 # K3's register route: route name -> (MR, MC), the register tile of each
 # thread of a block laid out 8 x 16 over [A | b]; a tile covers D <= 8 MR
 # rows and W = D + R <= 16 MC columns.  Smallest first: k3_plan takes the
@@ -101,11 +126,58 @@ def batched_kkt_solve_bl_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return x
 
 
+def k1_tile_threads(D: int, dtype: torch.dtype) -> int | None:
+    """Systems a block of K1's tile route holds for D x D systems: the NT
+    of the first tile of ``K1_TILES[dtype]`` with D <= DMAX; None when no
+    tile covers D or the block's D^2 NT values exceed a block's shared
+    memory."""
+    for dmax, nt in K1_TILES[dtype]:
+        if D <= dmax:
+            return nt if D * D * nt * dtype.itemsize <= SMEM_LIMIT else None
+    return None
+
+
+def k1_plan(D: int, R: int, dtype: torch.dtype) -> str:
+    """K1's route for D x D systems with R right-hand sides: ``"tile"`` up
+    to the split ``K1_TILE_MAX_D[dtype]``, else ``"global"``.  The tile
+    route's on-chip state is D^2 + D values a system whatever R is, so R
+    does not move the split."""
+    return "tile" if D <= K1_TILE_MAX_D[dtype] else "global"
+
+
 def batched_kkt_solve_bl(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batch-last solve: A (D, D, X), b (D, R, X) -> x (D, R, X), pivot-free.
 
     CPU tensors take the plain version; CUDA tensors launch the K1 kernel
-    (``batched_kkt_solve_bl.launches`` counts the launches)."""
+    of the route ``k1_plan(D, R, dtype)`` picks.
+    ``batched_kkt_solve_bl.launches`` counts the launches,
+    ``batched_kkt_solve_bl.launches_by_route`` splits them."""
+    return _solve_route_bl(A, b, None)
+
+
+def _check_tiles(lib) -> None:
+    """Raise unless the library's tile-route tiles are ``K1_TILES``."""
+    global _tiles_checked
+    planned = [(dtype.itemsize, dmax, nt)
+               for dtype, tiles in K1_TILES.items() for dmax, nt in tiles]
+    buf = (ctypes.c_int64 * (3 * len(planned) + 3))()
+    n = lib.eqlb_lu_solve_bl_tiles(ctypes.addressof(buf), len(buf))
+    built = [tuple(buf[3 * e:3 * e + 3]) for e in range(min(n, len(buf) // 3))]
+    if n != len(planned) or built != planned:
+        raise RuntimeError(
+            f"the kernel library was built with tiles {built} ({n}), the "
+            f"wrapper plans {planned} (bytes, DMAX, NT)")
+    _tiles_checked = True
+
+
+_tiles_checked = False
+
+
+def _solve_route_bl(A: torch.Tensor, b: torch.Tensor,
+                    route: str | None) -> torch.Tensor:
+    """``batched_kkt_solve_bl`` by ``route`` (one of ``K1_ROUTES`` that
+    takes the shape; None: ``k1_plan``'s), for comparing the routes on one
+    batch.  Only the global route allocates a scratch."""
     if A.dim() != 3 or b.dim() != 3 or A.shape[0] != A.shape[1] \
             or b.shape[0] != A.shape[0] or b.shape[2] != A.shape[2]:
         raise ValueError(
@@ -117,25 +189,44 @@ def batched_kkt_solve_bl(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported dtype {A.dtype}")
     if not (A.is_contiguous() and b.is_contiguous()):
         raise ValueError("A and b must be contiguous")
+    D, R, X = b.shape
+    if route is None:
+        route = k1_plan(D, R, A.dtype)
+    elif route not in K1_ROUTES:
+        raise ValueError(f"unknown K1 route {route!r}; one of {K1_ROUTES}")
+    elif route == "tile" and k1_tile_threads(D, A.dtype) is None:
+        raise ValueError(f"K1 route 'tile' does not take D={D} in {A.dtype}")
     if A.device.type == "cpu":
         return batched_kkt_solve_bl_plain(A, b)
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
-    D, R, X = b.shape
     x = torch.empty_like(b)
     if X == 0 or D == 0 or R == 0:
         return x
-    scratch = torch.empty_like(A)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
-        fn = getattr(_build.library(), _FUNCS[A.dtype])
-        _build.check(fn(A.data_ptr(), b.data_ptr(), scratch.data_ptr(),
-                        x.data_ptr(), D, R, X, stream), _FUNCS[A.dtype])
+        lib = _build.library()
+        if route == "tile":
+            if not _tiles_checked:
+                _check_tiles(lib)
+            name = _FUNCS_BL_TILE[A.dtype]
+            code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
+                                      x.data_ptr(), D, R, X,
+                                      k1_tile_threads(D, A.dtype), stream)
+        else:
+            scratch = torch.empty_like(A)
+            name = _FUNCS[A.dtype]
+            code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
+                                      scratch.data_ptr(), x.data_ptr(),
+                                      D, R, X, stream)
+        _build.check(code, name)
     batched_kkt_solve_bl.launches += 1
+    batched_kkt_solve_bl.launches_by_route[route] += 1
     return x
 
 
 batched_kkt_solve_bl.launches = 0
+batched_kkt_solve_bl.launches_by_route = dict.fromkeys(K1_ROUTES, 0)
 
 
 def batched_kkt_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

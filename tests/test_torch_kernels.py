@@ -1,7 +1,8 @@
 """Plain versions of the port's kernels against the JAX package's Pallas
 kernels (run in interpret mode off the TPU, as the JAX package's own tests
 run them): K1 and K3, the batch-last and batch-major pivot-free solves, and
-K2 and K4, the dof combine and its double-single variant.  The CUDA kernels
+K2 and K4, the dof combine and its double-single variant; and the route
+plans of K1 and K3, with the checks of the tables they share with C.  The CUDA kernels
 themselves run only on the card; ``chip_smoke.py`` holds them against these
 plain versions there."""
 
@@ -29,9 +30,10 @@ from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
 from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
 from dolfinx_eqlb_tpu_torch.mesh import unit_square, unit_square_unstructured
 from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
-    K3_REG_TILES, SMEM_LIMIT, _check_reg_tiles, _solve_route,
+    K1_ROUTES, K1_TILE_MAX_D, K1_TILES, K3_REG_TILES, SMEM_LIMIT,
+    _check_reg_tiles, _check_tiles, _solve_route, _solve_route_bl,
     batched_kkt_solve, batched_kkt_solve_bl, batched_kkt_solve_bl_plain,
-    batched_kkt_solve_plain, k3_plan,
+    batched_kkt_solve_plain, k1_plan, k1_tile_threads, k3_plan,
 )
 
 torch.set_num_threads(2)
@@ -47,9 +49,11 @@ def _spd_batch(D, R, X, seed):
             np.ascontiguousarray(np.moveaxis(b, 0, -1)))
 
 
-@pytest.mark.parametrize("D", [4, 6, 9])
+@pytest.mark.parametrize("D", [4, 6, 9, 13, 15, 25])
 @pytest.mark.parametrize("rhs", ["one", "square"])
 def test_k1_plain_matches_pallas_and_linalg(D, rhs):
+    """D = 4-9 are RT2's system sizes, 13, 15 and 25 RT3's; R = D is the
+    interior inverse build, R = 1 a boundary solve."""
     R = 1 if rhs == "one" else D
     A, b = _spd_batch(D, R, 200, seed=D * 10 + R)
     x_jax = np.asarray(jax_k1(jnp.asarray(A, jnp.float64),
@@ -83,6 +87,113 @@ def test_k1_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError):  # the kernel needs contiguous operands
         batched_kkt_solve_bl(A.transpose(0, 1),
                              torch.zeros(4, 1, 8, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rhs", ["one", "square"])
+def test_k1_plan_covers_every_size(rhs, dtype):
+    """Every D from 1 to 64 has a route, "tile" exactly up to the split
+    ``K1_TILE_MAX_D``; below it the tile of D is the first of
+    ``K1_TILES`` whose DMAX covers D, its NT a multiple of 32, and a block
+    of NT systems fits in shared memory."""
+    split = K1_TILE_MAX_D[dtype]
+    assert split <= K1_TILES[dtype][-1][0]
+    for D in range(1, 65):
+        R = 1 if rhs == "one" else D
+        route = k1_plan(D, R, dtype)
+        assert route in K1_ROUTES
+        assert (route == "tile") == (D <= split), (D, route)
+        if route == "tile":
+            dmax, nt = next(t for t in K1_TILES[dtype] if D <= t[0])
+            assert k1_tile_threads(D, dtype) == nt
+            assert nt % 32 == 0 and 32 <= nt <= 256
+            assert D * D * nt * dtype.itemsize <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("mesh", ["crossed", "unstructured"])
+def test_k1_plan_takes_engine_shapes(mesh, k):
+    """The K1 shapes of the engine's buckets on the engine tests' meshes
+    (interior inverse builds R = D, boundary solves R = 1) map as the plan
+    says: every one of RT1-RT3 (D <= 25) to the tile route, in f32 and
+    f64."""
+    msh = unit_square(3) if mesh == "crossed" else unit_square_unstructured(4)
+    eng = EqlbEngine(FunctionSpace(msh, "RT", k), build_patches(msh),
+                     dtype=torch.float64, device="cpu")
+    shapes = {(eng.se_static[key]["Dz"],
+               1 if b.is_boundary else eng.se_static[key]["Dz"])
+              for key, b in eng.buckets.items()}
+    assert max(D for D, _ in shapes) == {1: 1, 2: 9, 3: 25}[k]
+    for D, R in shapes:
+        for dtype in (torch.float32, torch.float64):
+            assert D <= K1_TILE_MAX_D[dtype]
+            assert k1_plan(D, R, dtype) == "tile", (D, R, dtype)
+
+
+def test_k1_wrapper_routes_on_cpu():
+    """On CPU tensors every route that takes the shape is the plain
+    version and launches nothing; a route that cannot take the shape, or
+    an unknown one, raises."""
+    A, b = _spd_batch(7, 3, 40, seed=6)
+    At, bt = torch.tensor(A), torch.tensor(b)
+    before = dict(batched_kkt_solve_bl.launches_by_route)
+    ref = batched_kkt_solve_bl_plain(At, bt)
+    for route in (*K1_ROUTES, None):
+        torch.testing.assert_close(_solve_route_bl(At, bt, route), ref,
+                                   rtol=0, atol=0)
+    assert batched_kkt_solve_bl.launches_by_route == before
+    for dtype in (torch.float32, torch.float64):
+        D = K1_TILE_MAX_D[dtype] + 1  # above the split: global, by plan
+        Ab = torch.eye(D, dtype=dtype)[:, :, None].repeat(1, 1, 3)
+        bb = torch.ones(D, 1, 3, dtype=dtype)
+        assert k1_plan(D, 1, dtype) == "global"
+        for route in (*K1_ROUTES, None):
+            torch.testing.assert_close(_solve_route_bl(Ab, bb, route), bb,
+                                       rtol=0, atol=0)
+    # no tile covers D = 33; at D = 31 a block of 32 f64 systems exceeds
+    # a block's shared memory
+    for D, dtype in ((33, torch.float32), (31, torch.float64)):
+        assert k1_tile_threads(D, dtype) is None
+        with pytest.raises(ValueError):
+            _solve_route_bl(torch.eye(D, dtype=dtype)[:, :, None],
+                            torch.ones(D, 1, 1, dtype=dtype), "tile")
+    with pytest.raises(ValueError):
+        _solve_route_bl(At, bt, "shared")
+
+
+class _K1TileLib:
+    """Stands in for the kernel library's tile-route table query."""
+
+    def __init__(self, tiles):
+        self.tiles = tiles
+
+    def eqlb_lu_solve_bl_tiles(self, addr, cap):
+        flat = [v for tile in self.tiles for v in tile]
+        out = (ctypes.c_int64 * cap).from_address(addr)
+        for e, v in enumerate(flat[:cap]):
+            out[e] = v
+        return len(self.tiles)
+
+
+_K1_BUILT = [(dtype.itemsize, dmax, nt)
+             for dtype, tiles in K1_TILES.items() for dmax, nt in tiles]
+
+
+@pytest.mark.parametrize("tiles,ok", [
+    (_K1_BUILT, True),
+    ([(4, 8, 256)] + _K1_BUILT[1:], False),  # another NT
+    (_K1_BUILT[:-1], False),  # a tile the plan names is not built
+    (_K1_BUILT + [(8, 64, 32)], False),  # a tile the plan lacks
+    (_K1_BUILT[3:] + _K1_BUILT[:3], False),  # another order
+])
+def test_k1_tile_check(tiles, ok):
+    """The tile route's first launch holds the library's built tiles
+    against ``K1_TILES`` and raises on any difference."""
+    if ok:
+        _check_tiles(_K1TileLib(tiles))
+    else:
+        with pytest.raises(RuntimeError):
+            _check_tiles(_K1TileLib(tiles))
 
 
 def test_k2_plain_matches_pallas_combine(monkeypatch):
