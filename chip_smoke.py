@@ -15,7 +15,10 @@ through its kernels and agrees with the plain route:
 * the semi-explicit main path, f32 (K1, K2);
 * the KKT cross-check path, f64 and f32 (K3, K2);
 * the mixed-precision path, f64 data, f32 factorisations with an f64
-  correction and the double-single combine (K1, K4).
+  correction and the double-single combine (K1, K4);
+
+then the flux user API end to end in f64 (K1, K2 in both equilibrators):
+``demos/demo_reconstruction.py``'s flow with P2 primal and RT2 flux.
 
 Phases, one line each:
 
@@ -42,7 +45,19 @@ Phases, one line each:
   10. K4 (double-single combine) against its plain version, bitwise;
   11. the mixed-precision path against the f64 plain route (K1's
       launches by route), and the native-f64 kernel route on the same
-      tables.
+      tables;
+  12. the flux user API on ``unit_square(n)``, u = sin(2 pi x) cos(2 pi y),
+      in two BC cases ("dirichlet"; "neumann_inhom", Neumann on x in
+      {0, 1}): the projected RHS, ``PoissonSolver.solve`` (rtol 1e-13,
+      CG iterations), the projected flux, ``FluxEqlbSE`` and
+      ``FluxEqlbEV`` (construct, set the BCs, equilibrate twice, K1's
+      launches by route and K2's per equilibrator; then K1 and K2 against
+      their plain versions on the equilibrator's own operands, at its
+      unchunked shapes), the divergence, jump (SE) and boundary
+      (Neumann) checks, each run once, max|SE - EV| at fixed points,
+      seconds per stage and peak device memory; then the "dirichlet"
+      flow on ``unit_square(64)`` on the card and on the CPU, the SE and
+      EV dofs compared.
 
 Kernel times are CUDA-event means of single launches, each after a write
 of 256 MB that leaves the 50 MB L2 cold.  Any failure exits non-zero;
@@ -854,6 +869,280 @@ def phase_mixed(V, buckets, msh, device):
     return res
 
 
+def exact_u(x):
+    """demo_reconstruction's manufactured solution sin(2 pi x) cos(2 pi y)."""
+    return np.sin(2 * np.pi * x[..., 0]) * np.cos(2 * np.pi * x[..., 1])
+
+
+def exact_f(x):
+    return 8 * np.pi**2 * exact_u(x)
+
+
+def exact_ux(x):
+    return (2 * np.pi * np.cos(2 * np.pi * x[..., 0])
+            * np.cos(2 * np.pi * x[..., 1]))
+
+
+class Stages:
+    """Host-clock seconds of named stages, synchronised on the card."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.s = {}
+
+    def __call__(self, name, fn):
+        if self.device.type == "cuda":
+            sync(self.device)
+        t0 = time.perf_counter()
+        out = fn()
+        if self.device.type == "cuda":
+            sync(self.device)
+        self.s[name] = time.perf_counter() - t0
+        return out
+
+
+def flux_kernel_checks(eq) -> dict:
+    """K1 and K2 against their plain versions on an equilibrator's own
+    operands, at the shapes its engine (one bucket per patch shape, no
+    chunks) gives them: every K1 solve of one more ``equilibrate_fluxes``
+    call (the boundary buckets' masked systems, R = 1), the interior
+    buckets' inverse builds from the cached A_z (R = D), and the call's
+    combine.  K1 within 1e-12 of the plain solve relative to its largest
+    entry, in f64; K2 bitwise.  Run after the path's launches are read."""
+    from dolfinx_eqlb_tpu_torch.ops.lane_select import (
+        combine_gather, combine_gather_plain,
+    )
+    from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
+        batched_kkt_solve_bl, batched_kkt_solve_bl_plain,
+    )
+
+    eng = eq.engine
+    solves, flats = [], []
+    solve, combine = eng._dense_solve_bl, eng._combine_flat
+    eng._dense_solve_bl = lambda A, b: solves.append((A, b)) or solve(A, b)
+    eng._combine_flat = lambda flat: flats.append(flat) or combine(flat)
+    try:
+        eq.equilibrate_fluxes()
+    finally:
+        del eng._dense_solve_bl, eng._combine_flat
+    dev, _ = eng._device_tables()
+    for key in sorted(eng.buckets):
+        if not eng.buckets[key].is_boundary:
+            Az = dev[key]["Az_bl"]
+            Dz, _, P = Az.shape
+            eye = torch.eye(Dz, dtype=Az.dtype, device=Az.device)[:, :, None]
+            solves.append((Az, eye.expand(Dz, Dz, P).contiguous()))
+    k1 = []
+    for A, b in solves:
+        x = batched_kkt_solve_bl(A, b)
+        xp = batched_kkt_solve_bl_plain(A, b)
+        err = float((x - xp).abs().max())
+        rel = err / float(xp.abs().max())
+        D, R, X = b.shape
+        k1.append(dict(dtype=dname(A.dtype), D=D, R=R, X=X, max_abs_err=err,
+                       max_rel_err=rel, ok=bool(torch.isfinite(x).all())
+                       and rel <= 1e-12))
+        del x, xp
+    src = eng._combine_src()
+    out = combine_gather(flats[0], src, eng._nfk)
+    ref = combine_gather_plain(flats[0], src, eng._nfk)
+    k2 = dict(dtype=dname(out.dtype), ndofs=out.shape[1],
+              L=flats[0].shape[1], bitwise=bool(torch.equal(out, ref)),
+              max_abs_err=float((out - ref).abs().max()))
+    k2["ok"] = k2["bitwise"]
+    return {"K1": k1, "K2": k2}
+
+
+def flux_flow(msh, bc: str, device, degree: int = 2) -> dict:
+    """``demos/demo_reconstruction.py``'s flow with the port, P2 primal and
+    RT2 flux (``degree``), f64, one field: the projected RHS, the primal
+    Poisson solve (rtol 1e-13), the projected flux -grad(uh), then
+    ``FluxEqlbSE`` and ``FluxEqlbEV`` (construct, set the BCs, equilibrate
+    twice) and the condition checks at the JAX package's default
+    tolerances.  ``bc``: "dirichlet" (every boundary facet primal
+    Dirichlet) or "neumann_inhom" (Neumann on x in {0, 1}, the projected
+    trace shared by the primal load and the flux BCs).  Kernel launches
+    are counted from just before each equilibrator's first call to just
+    after its second."""
+    from dolfinx_eqlb_tpu_torch.eqlb import FluxEqlbEV, FluxEqlbSE, fluxbc
+    from dolfinx_eqlb_tpu_torch.eqlb import checks
+    from dolfinx_eqlb_tpu_torch.fem import (
+        FunctionSpace, grad, local_projection, project_facet_trace,
+    )
+    from dolfinx_eqlb_tpu_torch.models import PoissonSolver
+
+    k = degree
+    st = Stages(device)
+    V, Vr, Vf = st("spaces", lambda: (
+        FunctionSpace(msh, "P", k), FunctionSpace(msh, "DG", k - 1),
+        FunctionSpace(msh, "DG", k - 1, vs=2)))
+    rhs_proj = st("project_rhs", lambda: local_projection(
+        Vr, [exact_f], quadrature_degree=2 * k + 8, device=device))
+    if bc == "dirichlet":
+        prime, bcs, neumann = msh.boundary_facets, [], None
+    else:
+        left, right, bot, top = (msh.locate_boundary_facets(
+            lambda x, a=a, v=v: np.isclose(x[..., a], v))
+            for a, v in ((0, 0.0), (0, 1.0), (1, 0.0), (1, 1.0)))
+        prime = np.concatenate([bot, top])
+        gl = project_facet_trace(msh, left, lambda x: -exact_ux(x), k)
+        gr = project_facet_trace(msh, right, exact_ux, k)
+        neumann = [(left, gl), (right, gr)]
+        bcs = [fluxbc(-gl, left), fluxbc(-gr, right)]
+    solver = st("poisson_setup", lambda: PoissonSolver(V, device=device))
+    uh = st("poisson_solve", lambda: solver.solve(
+        rhs_proj[0], prime, exact_u, neumann=neumann, rtol=1e-13))
+    sigma_proj = st("project_flux", lambda: local_projection(
+        Vf, [-1.0 * grad(uh)]))
+    res = {"cells": msh.num_cells, "bc": bc,
+           "cg_iterations": solver.last_iterations,
+           "cg_residual": solver.last_residual,
+           "uh_finite": bool(torch.isfinite(uh.x).all()),
+           "uh": uh.x, "checks": {}, "errors": {}, "launches": {},
+           "k1_launches_by_route": {}, "k1_shapes": {}, "flux": {},
+           "kernel_checks": {}}
+    pts = np.array([[0.25, 0.25], [0.1, 0.6], [0.4, 0.55]])
+    values = {}
+    for name, Eqlb in (("SE", FluxEqlbSE), ("EV", FluxEqlbEV)):
+        eq = st(f"{name}_construct", lambda: Eqlb(k, msh, rhs_proj,
+                                                  sigma_proj))
+        st(f"{name}_set_bcs", lambda: eq.set_boundary_conditions(
+            [prime], [bcs]))
+        reset_launches()
+        st(f"{name}_equilibrate_1", eq.equilibrate_fluxes)
+        st(f"{name}_equilibrate_2", eq.equilibrate_fluxes)
+        res["launches"][name] = read_launches()
+        res["k1_launches_by_route"][name] = dict(
+            kernel_wrappers()["K1"].launches_by_route)
+        res["k1_shapes"][name] = solve_shapes(eq.engine)
+        if torch.device(device).type == "cuda":
+            res["kernel_checks"][name] = flux_kernel_checks(eq)
+        sig = eq.list_flux[0]
+        res["flux"][name] = sig.x
+        args = (sig, sigma_proj[0])
+        # each check once: its error, and the verdict of the check's own
+        # default tolerance on it
+        ck, errs = res["checks"], res["errors"]
+        err, scale = st(f"{name}_check_divergence",
+                        lambda: checks.divergence_error(*args, rhs_proj[0]))
+        ck[f"{name}_divergence"] = err < checks.DIVERGENCE_ATOL * scale
+        errs[f"{name}_divergence"] = err
+        if name == "SE":
+            err = st("SE_check_jump", lambda: checks.jump_error(*args))
+            ck["SE_jump"] = err < checks.JUMP_ATOL
+            errs["SE_jump"] = err
+        if bc != "dirichlet":
+            bf = np.where(eq.boundary_data.facet_kind[0] == 2)[0]
+            ck[f"{name}_boundary"] = st(
+                f"{name}_check_boundary",
+                lambda: checks.check_boundary_conditions(
+                    *args, eq.list_bfunctions[0], bf))
+        values[name] = checks.reconstructed_flux_expr(*args).evaluate(pts)
+        del eq
+    # EV and SE solve the same minimisation (tests/test_eqlb_conditions.py)
+    res["se_ev_max_abs"] = float((values["SE"] - values["EV"]).abs().max())
+    res["se_ev_limit"] = 1e-9 * max(1.0, float(values["EV"].abs().max()))
+    res["stages_s"] = st.s
+    return res
+
+
+def phase_flux_api(n: int, device) -> dict:
+    """The flux user API end to end on the crossed ``unit_square(n)``, both
+    BC cases (``flux_flow``), each with its peak device memory; then the
+    ``dirichlet`` flow on ``unit_square(64)`` on the card and on the CPU
+    (plain versions), the SE and EV dof vectors compared."""
+    from dolfinx_eqlb_tpu_torch.mesh import unit_square
+
+    t0 = time.perf_counter()
+    msh = unit_square(n)
+    out = {"n": n, "mesh_s": time.perf_counter() - t0, "cases": {}}
+    for bc in ("dirichlet", "neumann_inhom"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        res = flux_flow(msh, bc, device)
+        res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        for key in ("uh", "flux"):
+            res.pop(key)
+        out["cases"][bc] = res
+    del msh
+    torch.cuda.empty_cache()
+    small = unit_square(64)
+    card = flux_flow(small, "dirichlet", device)
+    cpu = flux_flow(unit_square(64), "dirichlet", "cpu")
+    par = {"n": 64, "cells": small.num_cells,
+           "cg_iterations": [card["cg_iterations"], cpu["cg_iterations"]],
+           "uh_max_abs_err": float((card["uh"].cpu() - cpu["uh"]).abs().max())}
+    ok = True
+    for name in ("SE", "EV"):
+        x_card, x_cpu = card["flux"][name].cpu(), cpu["flux"][name]
+        err = float((x_card - x_cpu).abs().max())
+        limit = 1e-11 * max(1.0, float(x_cpu.abs().max()))
+        par[f"{name}_max_abs_err"], par[f"{name}_limit"] = err, limit
+        ok &= bool(torch.isfinite(x_card).all()) and err <= limit
+    par["kernels_ok"] = all(
+        all(c["ok"] for c in kc["K1"]) and kc["K2"]["ok"]
+        for kc in card["kernel_checks"].values())
+    par["ok"] = ok and par["kernels_ok"]
+    out["parity"] = par
+    return out
+
+
+def report_flux_api(api: dict, nph: int, failures: list) -> None:
+    """Print phase 12 and add its failures: a check false, SE and EV
+    apart, a kernel not launched or K1 on a route its shapes do not
+    plan, the card and the CPU apart."""
+    for bc, r in api["cases"].items():
+        log(f"[12/{nph}] flux user API unit_square({api['n']}) "
+            f"({r['cells']} cells) P2/RT2 f64 {bc}: mesh "
+            f"{api['mesh_s']:.2f} s; stages (s) "
+            + ", ".join(f"{key} {val:.3f}" for key, val in
+                        r["stages_s"].items())
+            + f"; CG {r['cg_iterations']} iterations (residual "
+            f"{r['cg_residual']:.3e}); peak {r['peak_mem_gib']:.2f} GiB; "
+            f"launches SE {r['launches']['SE']} EV {r['launches']['EV']}, "
+            f"K1 by route {r['k1_launches_by_route']}; checks "
+            f"{r['checks']}; divergence error / jump residual "
+            f"{r['errors']}; max|SE - EV| {r['se_ev_max_abs']:.3e} (limit "
+            f"{r['se_ev_limit']:.3e})")
+        log("    detail: " + json.dumps(r))
+        if not all(r["checks"].values()):
+            failures.append(f"flux user API {bc}: a check failed: "
+                            f"{r['checks']}")
+        if not r["uh_finite"]:
+            failures.append(f"flux user API {bc}: the primal solution is "
+                            "not finite")
+        if not r["se_ev_max_abs"] <= r["se_ev_limit"]:
+            failures.append(f"flux user API {bc}: SE and EV disagree")
+        for name in ("SE", "EV"):
+            if (r["launches"][name]["K1"] <= 0
+                    or r["launches"][name]["K2"] <= 0):
+                failures.append(f"flux user API {bc} {name} skipped a "
+                                f"kernel: {r['launches'][name]}")
+            check_k1_routes(f"flux user API {bc} {name}",
+                            r["k1_launches_by_route"][name],
+                            r["k1_shapes"][name], torch.float64, failures)
+            kc = r["kernel_checks"][name]
+            log(f"    {bc} {name} kernels vs plain at the path's shapes: K1 "
+                + "; ".join(f"D={c['D']} R={c['R']} X={c['X']} max_rel_err "
+                            f"{c['max_rel_err']:.3e}" for c in kc["K1"])
+                + f" (limit 1e-12); K2 ndofs={kc['K2']['ndofs']} bitwise "
+                f"{kc['K2']['bitwise']}")
+            if not all(c["ok"] for c in kc["K1"]) or not kc["K2"]["ok"]:
+                failures.append(f"flux user API {bc} {name}: a kernel "
+                                "disagrees with its plain version")
+    par = api["parity"]
+    log(f"[12/{nph}] flux user API parity unit_square({par['n']}) "
+        f"dirichlet, card vs CPU: CG iterations {par['cg_iterations']}, "
+        f"max|uh| err {par['uh_max_abs_err']:.3e}; SE "
+        f"{par['SE_max_abs_err']:.3e} (limit {par['SE_limit']:.3e}), EV "
+        f"{par['EV_max_abs_err']:.3e} (limit {par['EV_limit']:.3e}); "
+        f"kernels vs plain {par['kernels_ok']}"
+        f"{'' if par['ok'] else '  FAILED'}")
+    if not par["ok"]:
+        failures.append("flux user API: card and CPU disagree, or a kernel "
+                        "and its plain version at unit_square(64)")
+
+
 def kernel_entry(name, source, replaces, launches, row, errs):
     """One entry of the "kernels" line from a phase row."""
     return {"name": name, "route": "cuda", "source": source,
@@ -891,7 +1180,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     failures = []
-    nph = 11
+    nph = 12
 
     card = card_line()
     log(card)
@@ -1055,6 +1344,11 @@ def main(argv=None) -> int:
     # the mixed path runs K1 in f32
     check_k1_routes("mixed path", mixed["k1_launches_by_route"],
                     mixed["k1_shapes"], torch.float32, failures)
+    del V, buckets, msh
+    torch.cuda.empty_cache()
+
+    api = phase_flux_api(args.n, device)
+    report_flux_api(api, nph, failures)
 
     if failures:
         for f in failures:
@@ -1063,6 +1357,12 @@ def main(argv=None) -> int:
 
     paths = {"semiexplicit_f32": launches, "kkt_f64": kkt["float64"]["launches"],
              "kkt_f32": kkt["float32"]["launches"], "mixed_f64": mixed["launches"]}
+    # the flux user API's equilibrators, both BC cases summed
+    for name in ("SE", "EV"):
+        paths[f"flux_api_{name.lower()}_f64"] = {
+            kname: sum(r["launches"][name][kname]
+                       for r in api["cases"].values())
+            for kname in kernel_wrappers()}
 
     def total(kname):
         return sum(p[kname] for p in paths.values())
@@ -1074,12 +1374,18 @@ def main(argv=None) -> int:
     # K1's numbers are those of the main path's largest shape by its
     # planned route; the global route beside them
     k1_row = biggest([r for r in k1 if r["set"] == "main"], "float32")
+    flux_checks = [kc for r in api["cases"].values()
+                   for kc in r["kernel_checks"].values()]
+    k1_errs = ([r["max_abs_err"] for r in k1]
+               + [c["max_abs_err"] for kc in flux_checks for c in kc["K1"]])
+    k2_errs = ([r["max_abs_err"] for r in k2]
+               + [kc["K2"]["max_abs_err"] for kc in flux_checks])
     entries = [
         kernel_entry("K1 batched_kkt_solve_bl", K1_SOURCE, K1_REPLACES,
-                     total("K1"), k1_row, [r["max_abs_err"] for r in k1]),
+                     total("K1"), k1_row, k1_errs),
         kernel_entry("K2 combine_gather", K2_SOURCE, K2_REPLACES,
                      total("K2"), next(r for r in k2 if r["dtype"] == "float32"),
-                     [r["max_abs_err"] for r in k2]),
+                     k2_errs),
         kernel_entry("K3 batched_kkt_solve", K3_SOURCE, K3_REPLACES,
                      total("K3"), biggest(k3, "float64"),
                      [r["max_abs_err"] for r in k3]),
@@ -1092,8 +1398,12 @@ def main(argv=None) -> int:
     entries[0].update(
         k1_route=k1_row["route"], global_ms=k1_row["global_ms"],
         global_max_abs_err=max(r["global_max_abs_err"] for r in k1),
-        launches_by_route={"semiexplicit_f32": main_res["k1_launches_by_route"],
-                           "mixed_f64": mixed["k1_launches_by_route"]})
+        launches_by_route={
+            "semiexplicit_f32": main_res["k1_launches_by_route"],
+            "mixed_f64": mixed["k1_launches_by_route"],
+            **{f"flux_api_{name.lower()}_f64_{bc}":
+               r["k1_launches_by_route"][name]
+               for bc, r in api["cases"].items() for name in ("SE", "EV")}})
     # K3's numbers are its register route's; the shared route beside them
     k3_row = biggest(k3, "float64")
     entries[2].update(

@@ -51,7 +51,7 @@ from ..elements.lagrange import dubiner_cached, lagrange_cached
 from ..elements.polynomials import legendre_shifted
 from ..elements.quadrature import gauss_interval, gauss_triangle
 from ..elements.rt import rt_cached
-from ..fem.spaces import FunctionSpace
+from ..fem.spaces import FunctionSpace, resolve_device
 from ..ops.lane_select import combine_gather, ds_combine_gather
 from ..ops.patch_solve import batched_kkt_solve, batched_kkt_solve_bl
 from .patches import PatchBucket, bucket_dof_tables
@@ -138,17 +138,6 @@ def _chunk_buckets(buckets, C: int):
     return split
 
 
-def _resolve_device(device) -> torch.device:
-    """``None`` means the card; without one, raise rather than fall back."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "EqlbEngine runs on the CUDA card by default and none is "
-                "available; pass device='cpu' for the plain versions")
-        device = "cuda"
-    return torch.device(device)
-
-
 def k3_takes(D: int) -> bool:
     """The reference's size rule for its batch-major Pallas solve (two
     (D, D, 128) f32 tiles in a 12 MiB budget: D <= 110).  The port routes
@@ -189,12 +178,16 @@ class EqlbEngine:
         dtype: torch.dtype = torch.float64,
         device=None,
         max_patches_per_bucket: int | None = None,
+        pad_quantize: float | None = None,
     ):
         """``dtype``: compute precision of the patch solves (f64 default).
         ``device``: the CUDA card by default; ``"cpu"`` runs the kernels'
         plain versions.  ``max_patches_per_bucket``: split larger buckets
-        into chunks of at most this many patches."""
-        device = _resolve_device(device)
+        into chunks of at most this many patches.  ``pad_quantize`` is
+        accepted for parity with the reference's signature and ignored:
+        it rounds bucket shapes up so a compile cache recurs, and nothing
+        here is compiled per shape."""
+        device = resolve_device(device, "EqlbEngine")
         if V_flux.family != "RT":
             raise ValueError("the flux space must be RT")
         k = V_flux.degree
@@ -232,7 +225,7 @@ class EqlbEngine:
         so a parity failure can be pinned on the host tables or on the
         device stages.  Pad rows in the tables (``gdofs == ndofs``) are
         solved and never combined."""
-        device = _resolve_device(device)
+        device = resolve_device(device, "EqlbEngine")
         eng = cls.__new__(cls)
         eng._setup(V_flux, buckets, tables, se_static, ref, dtype, device)
         return eng
@@ -445,10 +438,27 @@ class EqlbEngine:
             dtype=self.dtype, device=self.device)
         return dpT, drT
 
+    def _input(self, a, dtype=None) -> torch.Tensor:
+        """An input on the engine's device: a tensor must already be there
+        (it is cast, never copied through the host); anything else is taken
+        as host data and uploaded."""
+        if isinstance(a, torch.Tensor):
+            if a.device != self.device:
+                raise ValueError(
+                    f"input tensor on {a.device}, the engine runs on "
+                    f"{self.device}")
+            return a.detach().to(dtype) if dtype is not None else a.detach()
+        return torch.as_tensor(np.asarray(a), dtype=dtype,
+                               device=self.device)
+
     def equilibrate(self, sigma_proj_dofs, rhs_dofs, facet_kind, bvals,
                     transposed_inputs=False):
         """Solve all patch problems; returns global RT dof vectors
         (n_rhs, ndofs_flux) on the engine's device.
+
+        Inputs may be host arrays or tensors on the engine's device; NumPy
+        dof data is transposed to the batch-last layout on the host
+        (``put_transposed``), tensors on their device.
 
         Args (leading axis = n_rhs):
           sigma_proj_dofs (n_rhs, nc, 2, ndg): vector-DG dofs of sigma_proj
@@ -465,18 +475,21 @@ class EqlbEngine:
             raise ValueError(
                 "transposed_inputs=True needs mode='semiexplicit': the KKT "
                 "mode reads the batch-major data")
-        fk = torch.as_tensor(facet_kind, device=self.device)
-        bv = torch.as_tensor(bvals, dtype=self.dtype, device=self.device)
+        fk = self._input(facet_kind)
+        bv = self._input(bvals, self.dtype)
         with _full_f32_matmul():
             if self.mode == "kkt":
-                dp = torch.as_tensor(sigma_proj_dofs, dtype=self.dtype,
-                                     device=self.device)
-                dr = torch.as_tensor(rhs_dofs, dtype=self.dtype,
-                                     device=self.device)
+                dp = self._input(sigma_proj_dofs, self.dtype)
+                dr = self._input(rhs_dofs, self.dtype)
                 flat = self._bucket_solutions_kkt(dp, dr, fk, bv)
             else:
                 if transposed_inputs:
                     dpT, drT = sigma_proj_dofs, rhs_dofs
+                elif isinstance(sigma_proj_dofs, torch.Tensor):
+                    dpT = self._input(sigma_proj_dofs, self.dtype).movedim(
+                        1, -1).contiguous()
+                    drT = self._input(rhs_dofs, self.dtype).movedim(
+                        1, -1).contiguous()
                 else:
                     dpT, drT = self.put_transposed(sigma_proj_dofs, rhs_dofs)
                 flat = self._bucket_solutions(dpT, drT, fk, bv)

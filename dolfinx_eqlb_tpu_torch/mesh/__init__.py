@@ -3,5 +3,6 @@ from .generators import (  # noqa: F401
     unit_square,
     unit_square_unstructured,
     rectangle,
+    permute_vertices,
 )
 from .refine import refine_facets  # noqa: F401

@@ -17,6 +17,7 @@ __all__ = [
     "unit_square",
     "unit_square_unstructured",
     "rectangle",
+    "permute_vertices",
 ]
 
 
@@ -67,6 +68,27 @@ def unit_square(n: int, diagonal: str = "crossed") -> TriMesh:
     """Unit square [0,1]^2, ``n`` elements per direction (reference
     ``create_unit_square_builtin``, demo_reconstruction.py:63-119)."""
     return rectangle((0.0, 0.0), (1.0, 1.0), n, n, diagonal)
+
+
+def permute_vertices(msh: TriMesh, seed: int = 0) -> TriMesh:
+    """Randomly renumber vertices and flip the orientation of a random
+    subset of cells.
+
+    This produces facets whose canonical (ascending-global-id) direction
+    disagrees with one of the adjacent cells' local direction, and cells
+    with negative Jacobian determinant — the "mesh has reversed edges"
+    property the reference's gmsh fixture asserts
+    (``test/unit/utils.py:136-139``), so every orientation code path is
+    exercised.
+    """
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(msh.num_vertices)
+    pts = np.empty_like(msh.points)
+    pts[perm] = msh.points
+    cells = perm[msh.cells].astype(np.int32)
+    flip = rng.random(len(cells)) < 0.5
+    cells[flip] = cells[flip][:, [0, 2, 1]]
+    return TriMesh(pts, cells)
 
 
 def unit_square_unstructured(n: int, seed: int = 0) -> TriMesh:

@@ -169,11 +169,14 @@ class TriMesh:
         return self.v2f_data[self.v2f_offsets[v] : self.v2f_offsets[v + 1]]
 
     def map_points(self, qpoints_ref: np.ndarray) -> np.ndarray:
-        """Map reference points (nq, 2) into every cell -> (nc, nq, 2)."""
-        return (
-            self.cell_origins[:, None, :]
-            + np.einsum("cab,qb->cqa", self.J, qpoints_ref)
-        )
+        """Map reference points (nq, 2) into every cell -> (nc, nq, 2).
+
+        One (2 nc, 2) x (2, nq) matrix product: a plain ``np.einsum`` of
+        the same contraction takes most of a 1M-cell projection's time."""
+        q = np.asarray(qpoints_ref, dtype=np.float64)
+        nc = self.num_cells
+        Jq = (self.J.reshape(2 * nc, 2) @ q.T).reshape(nc, 2, len(q))
+        return self.cell_origins[:, None, :] + Jq.transpose(0, 2, 1)
 
     def locate_boundary_facets(self, marker) -> np.ndarray:
         """Facet ids on the boundary whose *both* endpoints satisfy marker(x).

@@ -3,7 +3,7 @@
 the JAX engine on the same inputs, within 1e-11 * max(1, max|x|) — the bar
 of tests/test_combine_paths.py.
 
-The JAX engines are built once per (mesh, k) with two RHS and padded patch
+The JAX engines are built once per (mesh, k) with three RHS and padded patch
 axes (``pad_to_multiple``), so their host tables carry pad rows for the
 ``from_host_tables`` case; every case feeds fresh data through the same
 compiled program."""
@@ -24,7 +24,7 @@ from dolfinx_eqlb_tpu_torch.mesh import generators as gen
 
 torch.set_num_threads(2)
 
-N_RHS = 2  # the JAX engines' batch; n_rhs = 1 cases use its first row
+N_RHS = 3  # the JAX engines' batch; smaller n_rhs cases use its first rows
 
 _MESHES = {
     "crossed": lambda g: g.unit_square(3),
@@ -79,15 +79,38 @@ def _check(x_port, x_jax):
 
 
 @pytest.mark.parametrize("mesh", sorted(_MESHES))
-@pytest.mark.parametrize("k", [1, 2, 3])
-@pytest.mark.parametrize("n_rhs", [1, 2])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("n_rhs", [1, 2, 3])
 def test_equilibrate_matches_jax(jax_engines, mesh, k, n_rhs):
+    """k = 4 takes K1's global route on every reduced system."""
     jeng = jax_engines(mesh, k)
     dp, dr, fk, bv = _data(jeng.mesh, k, seed=10 * k + n_rhs)
     x_jax = jeng.equilibrate(dp, dr, fk, bv)
     eng = _port(mesh, k)
     x = eng.equilibrate(dp[:n_rhs], dr[:n_rhs], fk[:n_rhs], bv[:n_rhs])
     _check(x.numpy(), np.asarray(x_jax)[:n_rhs])
+
+
+@pytest.mark.parametrize("mode", ["semiexplicit", "kkt"])
+def test_tensor_inputs(mode):
+    """Tensors go in as they are, one with requires_grad included, and give
+    exactly the NumPy-input result; a tensor on another device raises."""
+    eng = _port("crossed", 2)
+    eng.mode = mode
+    dp, dr, fk, bv = _data(eng.mesh, 2, seed=12, kinds=True)
+    x_np = eng.equilibrate(dp, dr, fk, bv)
+    dp_t = torch.tensor(dp, requires_grad=True)
+    x_t = eng.equilibrate(dp_t, torch.as_tensor(dr), torch.as_tensor(fk),
+                          torch.as_tensor(bv))
+    assert not x_t.requires_grad
+    assert torch.equal(x_t, x_np)
+    # f32 tensors are cast to the engine's dtype on their device
+    x_32 = eng.equilibrate(torch.as_tensor(dp, dtype=torch.float32),
+                           torch.as_tensor(dr, dtype=torch.float32), fk, bv)
+    assert torch.equal(x_32, eng.equilibrate(dp.astype(np.float32),
+                                             dr.astype(np.float32), fk, bv))
+    with pytest.raises(ValueError, match="engine runs on"):
+        eng.equilibrate(torch.as_tensor(dp, device="meta"), dr, fk, bv)
 
 
 @pytest.mark.parametrize("mesh", sorted(_MESHES))
