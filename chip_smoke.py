@@ -18,7 +18,10 @@ through its kernels and agrees with the plain route:
   correction and the double-single combine (K1, K4);
 
 then the flux user API end to end in f64 (K1, K2 in both equilibrators):
-``demos/demo_reconstruction.py``'s flow with P2 primal and RT2 flux.
+``demos/demo_reconstruction.py``'s flow with P2 primal and RT2 flux; then
+error estimation and the adaptive loops in f64 (K1 by both routes, K2):
+the port's ``demos.lshape_adaptive``, ``demos.error_estimation`` and
+``demos.discont_coeff``, held to the JAX package's committed runs.
 
 Phases, one line each:
 
@@ -57,7 +60,24 @@ Phases, one line each:
       (Neumann) checks, each run once, max|SE - EV| at fixed points,
       seconds per stage and peak device memory; then the "dirichlet"
       flow on ``unit_square(64)`` on the card and on the CPU, the SE and
-      EV dofs compared.
+      EV dofs compared;
+  13. the adaptive L-shape (``demos.lshape_adaptive``): P3/RT3 SE,
+      theta 0.6, to eta <= 1e-6 (at most 90 iterations), the configuration
+      of ``artifacts/AdaptiveLShape_p3_e3.csv``, one line per step (cells,
+      CG iterations, eta, err_H1, I_eff, stage seconds, K1's launches by
+      route with the step's K1 shapes, device memory); rows 0-9 held to the
+      CSV (cells identical, eta and err_H1 within 1e-8 relative).  Its
+      patch systems stay at D <= 25, K1's tile route, so the same loop runs
+      at P4/RT4 (D up to the 40s, K1's global route), its first 8 rows held
+      to the port on the CPU.  On each run's last step K1 (timed, beside
+      its plain version, ``torch.linalg.solve`` and its bound) and K2
+      against their plain versions on the step's own operands;
+  14. ``demos.error_estimation.run`` (P1/RT1, "dirichlet") for SE and EV
+      at n = 2 ... 512 (up to 1,048,576 cells): SE's rows n = 2, 4, 8 held
+      to ``ConvStudyFluxEqlb-SE_porder-1_eorder-1.csv`` and both series'
+      rows up to n = 32 to the port on the CPU (1e-10 relative); then the
+      Kellogg loop (``demos.discont_coeff``, 12 iterations) on the card and
+      on the CPU (cells identical, eta within 1e-9 relative).
 
 Kernel times are CUDA-event means of single launches, each after a write
 of 256 MB that leaves the 50 MB L2 cold.  Any failure exits non-zero;
@@ -869,51 +889,22 @@ def phase_mixed(V, buckets, msh, device):
     return res
 
 
-def exact_u(x):
-    """demo_reconstruction's manufactured solution sin(2 pi x) cos(2 pi y)."""
-    return np.sin(2 * np.pi * x[..., 0]) * np.cos(2 * np.pi * x[..., 1])
-
-
-def exact_f(x):
-    return 8 * np.pi**2 * exact_u(x)
-
-
-def exact_ux(x):
-    return (2 * np.pi * np.cos(2 * np.pi * x[..., 0])
-            * np.cos(2 * np.pi * x[..., 1]))
-
-
-class Stages:
-    """Host-clock seconds of named stages, synchronised on the card."""
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.s = {}
-
-    def __call__(self, name, fn):
-        if self.device.type == "cuda":
-            sync(self.device)
-        t0 = time.perf_counter()
-        out = fn()
-        if self.device.type == "cuda":
-            sync(self.device)
-        self.s[name] = time.perf_counter() - t0
-        return out
-
-
-def flux_kernel_checks(eq) -> dict:
+def flux_kernel_checks(eq, timer=None) -> dict:
     """K1 and K2 against their plain versions on an equilibrator's own
     operands, at the shapes its engine (one bucket per patch shape, no
     chunks) gives them: every K1 solve of one more ``equilibrate_fluxes``
     call (the boundary buckets' masked systems, R = 1), the interior
     buckets' inverse builds from the cached A_z (R = D), and the call's
     combine.  K1 within 1e-12 of the plain solve relative to its largest
-    entry, in f64; K2 bitwise.  Run after the path's launches are read."""
+    entry, in f64; K2 bitwise.  With a ``timer``, each K1 operand set is
+    also timed by the route ``k1_plan`` picks, beside its plain version,
+    ``torch.linalg.solve`` and its bound.  Run after the path's launches
+    are read."""
     from dolfinx_eqlb_tpu_torch.ops.lane_select import (
         combine_gather, combine_gather_plain,
     )
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
-        batched_kkt_solve_bl, batched_kkt_solve_bl_plain,
+        batched_kkt_solve_bl, batched_kkt_solve_bl_plain, k1_plan,
     )
 
     eng = eq.engine
@@ -939,9 +930,19 @@ def flux_kernel_checks(eq) -> dict:
         err = float((x - xp).abs().max())
         rel = err / float(xp.abs().max())
         D, R, X = b.shape
-        k1.append(dict(dtype=dname(A.dtype), D=D, R=R, X=X, max_abs_err=err,
-                       max_rel_err=rel, ok=bool(torch.isfinite(x).all())
-                       and rel <= 1e-12))
+        row = dict(dtype=dname(A.dtype), D=D, R=R, X=X, max_abs_err=err,
+                   max_rel_err=rel, route=k1_plan(D, R, A.dtype),
+                   ok=bool(torch.isfinite(x).all()) and rel <= 1e-12)
+        if timer is not None:
+            row["ms"] = timer.ms(lambda: batched_kkt_solve_bl(A, b), reps=5)
+            row["plain_ms"] = timer.ms(
+                lambda: batched_kkt_solve_bl_plain(A, b), reps=3, warmup=1)
+            row["library_ms"] = timer.ms(
+                lambda: torch.linalg.solve(A.permute(2, 0, 1),
+                                           b.permute(2, 0, 1)),
+                reps=3, warmup=1)
+            row["bound_ms"], row["bound_by"] = lu_bound(D, R, X, A.dtype)
+        k1.append(row)
         del x, xp
     src = eng._combine_src()
     out = combine_gather(flats[0], src, eng._nfk)
@@ -968,6 +969,10 @@ def flux_flow(msh, bc: str, device, degree: int = 2) -> dict:
     from dolfinx_eqlb_tpu_torch.eqlb import checks
     from dolfinx_eqlb_tpu_torch.fem import (
         FunctionSpace, grad, local_projection, project_facet_trace,
+    )
+    from dolfinx_eqlb_tpu_torch.demos._stages import Stages
+    from dolfinx_eqlb_tpu_torch.demos.reconstruction import (
+        exact_solution as exact_u, rhs as exact_f, ux as exact_ux,
     )
     from dolfinx_eqlb_tpu_torch.models import PoissonSolver
 
@@ -1143,6 +1148,311 @@ def report_flux_api(api: dict, nph: int, failures: list) -> None:
                         "and its plain version at unit_square(64)")
 
 
+# the JAX package's committed runs that phases 13 and 14 are held to
+LSHAPE_CSV = "artifacts/AdaptiveLShape_p3_e3.csv"
+CONV_CSV = "ConvStudyFluxEqlb-SE_porder-1_eorder-1.csv"
+# the artifact's run: P3/RT3, theta 0.6, tol 1e-6, 59 iterations to
+# 108,196 cells (README.md)
+LSHAPE_ARTIFACT = {"iterations": 59, "cells": 108196}
+
+
+def repo_file(name: str):
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / name
+
+
+def max_rel(got, want) -> float:
+    """Largest |got - want| / |want| over arrays; an entry where ``want`` is
+    0 must be 0."""
+    got, want = np.asarray(got, dtype=float), np.asarray(want, dtype=float)
+    d, scale = np.abs(got - want), np.abs(want)
+    rel = np.where(scale > 0, d / np.where(scale > 0, scale, 1.0),
+                   np.where(d > 0, np.inf, 0.0))
+    return float(rel.max()) if rel.size else 0.0
+
+
+def lshape_loop(order: int, device, max_iter: int = 90, timer=None,
+                label: str = "") -> dict:
+    """``demos.lshape_adaptive.adaptive_loop`` on ``device``, P``order`` /
+    RT``order`` SE, f64, from ``lshape(2)``, theta 0.6, until eta <= 1e-6
+    or ``max_iter`` iterations, one line per step: cells, CG
+    iterations against ``maxiter``, eta, err_H1, I_eff, seconds per stage,
+    K1's launches by route with the (D, R, X) of every K1 call of the
+    step's engine, K2's launches, device memory held at the step's end and
+    the step's peak.  Launches are counted from just before the loop to
+    just after it.  Then K1 and K2 against their plain versions on the last
+    step's own operands (``flux_kernel_checks``, K1 timed with ``timer``),
+    and the device memory left once the loop's objects are gone."""
+    import gc
+
+    from dolfinx_eqlb_tpu_torch.demos import lshape_adaptive
+
+    theta, tol = 0.6, 1e-6
+    k1, k2 = kernel_wrappers()["K1"], kernel_wrappers()["K2"]
+    cuda = torch.device(device).type == "cuda"
+    steps, last = [], {}
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    prev = {"route": dict(k1.launches_by_route), "K2": k2.launches}
+
+    def hook(step):
+        route = {rt: n - prev["route"][rt]
+                 for rt, n in k1.launches_by_route.items()}
+        k2_step = k2.launches - prev["K2"]
+        prev.update(route=dict(k1.launches_by_route), K2=k2.launches)
+        solver = step["solver"]
+        row = dict(it=step["it"], cells=step["mesh"].num_cells,
+                   cg_iterations=solver.last_iterations,
+                   cg_maxiter=solver.last_maxiter,
+                   eta=step["eta"], err_h1=step["err_h1"],
+                   i_eff=step["eta"] / step["err_h1"],
+                   stages_s=dict(step["stages_s"]), k1_by_route=route,
+                   k1_shapes=solve_shapes(step["eq"].engine), k2=k2_step)
+        row["cg_hit_maxiter"] = row["cg_iterations"] >= row["cg_maxiter"]
+        if cuda:
+            row["mem_gib"] = (torch.cuda.memory_allocated(device) - base) / 2**30
+            row["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+            torch.cuda.reset_peak_memory_stats(device)
+        steps.append(row)
+        last["eq"] = step["eq"]
+        log(f"    {label} step {row['it']}: {row['cells']} cells, CG "
+            f"{row['cg_iterations']}/{row['cg_maxiter']}"
+            f"{' (maxiter hit)' if row['cg_hit_maxiter'] else ''}, eta "
+            f"{row['eta']:.6e}, err_H1 {row['err_h1']:.6e}, I_eff "
+            f"{row['i_eff']:.4f}; s: "
+            + " ".join(f"{key} {val:.3f}" for key, val in
+                       row["stages_s"].items())
+            + f"; K1 {route} at {row['k1_shapes']}"
+            + (f"; mem {row['mem_gib']:.3f} GiB, peak {row['peak_gib']:.3f}"
+               if cuda else ""))
+
+    t0 = time.perf_counter()
+    msh, _ = lshape_adaptive.adaptive_loop(
+        order, order, theta, tol, max_iter, verbose=False, device=device,
+        step_hook=hook)
+    res = {"order": order, "theta": theta, "tol": tol, "max_iter": max_iter,
+           "seconds": time.perf_counter() - t0,
+           "launches": read_launches(),
+           "k1_launches_by_route": dict(k1.launches_by_route),
+           "steps": steps, "iterations": len(steps),
+           "final_cells": msh.num_cells, "final_eta": steps[-1]["eta"],
+           "k1_shapes": sorted({s for row in steps for s in row["k1_shapes"]}),
+           "max_D": max(D for row in steps for D, _, _ in row["k1_shapes"])}
+    for key in ("cg_iterations", "cg_hit_maxiter"):
+        res[key] = [row[key] for row in steps]
+    res["stage_totals_s"] = {
+        key: sum(row["stages_s"].get(key, 0.0) for row in steps)
+        for key in dict.fromkeys(k for row in steps for k in row["stages_s"])}
+    if cuda:
+        res["kernel_checks"] = flux_kernel_checks(last["eq"], timer)
+        res["peak_gib"] = max(row["peak_gib"] for row in steps)
+        del last["eq"], msh
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["mem_left_gib"] = (torch.cuda.memory_allocated(device)
+                               - base) / 2**30
+    return res
+
+
+def phase_lshape(device, timer) -> dict:
+    """The adaptive L-shape at the artifact's configuration (P3/RT3, theta
+    0.6, tol 1e-6, at most 90 iterations), held to ``LSHAPE_CSV``; then
+    the same loop at P4/RT4, whose patch systems pass K1's tile split, its
+    first rows held to the port on the CPU."""
+    import csv
+
+    with open(repo_file(LSHAPE_CSV)) as f:
+        ref = list(csv.DictReader(f))
+    out = {"rt3": lshape_loop(3, device, timer=timer, label="P3/RT3")}
+    r3 = out["rt3"]
+    rows = r3["steps"]
+    n = min(10, len(rows), len(ref))
+    r3["rows_checked"] = n
+    r3["cells_match_0_9"] = n == 10 and all(
+        rows[i]["cells"] == int(ref[i]["ncells"]) for i in range(n))
+    r3["eta_rel_0_9"] = max_rel([r["eta"] for r in rows[:n]],
+                                [float(r["eta"]) for r in ref[:n]])
+    r3["err_rel_0_9"] = max_rel([r["err_h1"] for r in rows[:n]],
+                                [float(r["err_h1"]) for r in ref[:n]])
+    r3["first_cells_differ"] = next(
+        (i for i in range(min(len(rows), len(ref)))
+         if rows[i]["cells"] != int(ref[i]["ncells"])), None)
+    same = min(len(rows), len(ref)) if r3["first_cells_differ"] is None \
+        else r3["first_cells_differ"]
+    r3["eta_rel_while_same"] = max_rel(
+        [r["eta"] for r in rows[:same]], [float(r["eta"]) for r in ref[:same]])
+    r3["artifact"] = dict(LSHAPE_ARTIFACT)
+
+    out["rt4"] = r4 = lshape_loop(4, device, timer=timer, label="P4/RT4")
+    ncpu = 8
+    cpu = lshape_loop(4, "cpu", max_iter=ncpu, label="P4/RT4 CPU")
+    r4["cpu_rows"] = ncpu
+    r4["cells_match_cpu"] = [r["cells"] for r in r4["steps"][:ncpu]] == [
+        r["cells"] for r in cpu["steps"]]
+    r4["eta_rel_cpu"] = max_rel([r["eta"] for r in r4["steps"][:ncpu]],
+                                [r["eta"] for r in cpu["steps"]])
+    return out
+
+
+def report_lshape(ls: dict, nph: int, failures: list) -> None:
+    """Print phase 13 and add its failures."""
+    for name, r in ls.items():
+        kc = r["kernel_checks"]
+        log(f"[13/{nph}] adaptive L-shape P{r['order']}/RT{r['order']} SE f64 "
+            f"theta {r['theta']} tol {r['tol']:g}: {r['iterations']} "
+            f"iterations to {r['final_cells']} cells, eta "
+            f"{r['final_eta']:.6e}, {r['seconds']:.1f} s; stage totals (s) "
+            + ", ".join(f"{key} {val:.2f}" for key, val in
+                        r["stage_totals_s"].items())
+            + f"; CG maxiter hit on {sum(r['cg_hit_maxiter'])} steps; "
+            f"launches {r['launches']}, K1 by route "
+            f"{r['k1_launches_by_route']}; largest K1 system D = "
+            f"{r['max_D']}; peak {r['peak_gib']:.3f} GiB, left after the "
+            f"loop {r['mem_left_gib']:.4f} GiB")
+        if name == "rt3":
+            log(f"    vs {LSHAPE_CSV}: rows 0-9 cells identical "
+                f"{r['cells_match_0_9']}, eta max rel {r['eta_rel_0_9']:.3e}, "
+                f"err_H1 max rel {r['err_rel_0_9']:.3e} (limit 1e-8); first "
+                f"row whose cells differ: {r['first_cells_differ']}; eta max "
+                f"rel while the meshes agree {r['eta_rel_while_same']:.3e}; "
+                f"iterations {r['iterations']} / final cells "
+                f"{r['final_cells']} (artifact {r['artifact']['iterations']}"
+                f" / {r['artifact']['cells']})")
+            if not (r["cells_match_0_9"] and r["eta_rel_0_9"] <= 1e-8
+                    and r["err_rel_0_9"] <= 1e-8):
+                failures.append("L-shape P3/RT3 rows 0-9 disagree with "
+                                f"{LSHAPE_CSV}")
+        else:
+            log(f"    vs the port on the CPU, rows 0-{r['cpu_rows'] - 1}: "
+                f"cells identical {r['cells_match_cpu']}, eta max rel "
+                f"{r['eta_rel_cpu']:.3e} (limit 1e-9)")
+            if not (r["cells_match_cpu"] and r["eta_rel_cpu"] <= 1e-9):
+                failures.append("L-shape P4/RT4 card and CPU disagree")
+        if not r["final_eta"] <= r["tol"]:
+            failures.append(f"L-shape {name} did not reach eta <= "
+                            f"{r['tol']:g} in {r['max_iter']} iterations")
+        if r["launches"]["K1"] <= 0 or r["launches"]["K2"] <= 0:
+            failures.append(f"L-shape {name} skipped a kernel: "
+                            f"{r['launches']}")
+        check_k1_routes(f"L-shape {name}", r["k1_launches_by_route"],
+                        r["k1_shapes"], torch.float64, failures)
+        log(f"    last step's kernels vs plain: K1 "
+            + "; ".join(f"D={c['D']} R={c['R']} X={c['X']} {c['route']} "
+                        f"max_rel_err {c['max_rel_err']:.3e}, "
+                        f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, "
+                        f"torch.linalg.solve {c['library_ms']:.4f}, bound "
+                        f"{c['bound_ms']:.5f} {c['bound_by']})"
+                        for c in kc["K1"])
+            + f" (limit 1e-12); K2 ndofs={kc['K2']['ndofs']} bitwise "
+            f"{kc['K2']['bitwise']}")
+        if not all(c["ok"] for c in kc["K1"]) or not kc["K2"]["ok"]:
+            failures.append(f"L-shape {name}: a kernel disagrees with its "
+                            "plain version at the last step's shapes")
+        log("    detail: " + json.dumps(
+            {key: val for key, val in r.items() if key != "steps"}))
+    globl = sum(r["k1_launches_by_route"]["global"] for r in ls.values())
+    checked = [c for r in ls.values() for c in r["kernel_checks"]["K1"]
+               if c["route"] == "global"]
+    if globl <= 0:
+        failures.append("the L-shape path never launched K1's global route")
+    if not checked:
+        failures.append("K1's global route was not held against its plain "
+                        "version at an L-shape shape")
+
+
+def phase_uniform(device, nref: int = 9, ncpu: int = 5) -> dict:
+    """``demos.error_estimation.run`` (P1/RT1, "dirichlet") for SE and EV on
+    ``device`` at n = 2 * 2^i, i < ``nref`` (n = 512: 1,048,576 cells),
+    launches counted around each series; SE's first rows held to
+    ``CONV_CSV``, both series' first ``ncpu`` rows to the port on the CPU;
+    then the Kellogg loop (``demos.discont_coeff``, its defaults) on
+    ``device`` and on the CPU."""
+    from dolfinx_eqlb_tpu_torch.demos import discont_coeff, error_estimation
+    from dolfinx_eqlb_tpu_torch.eqlb import FluxEqlbEV, FluxEqlbSE
+
+    want = np.loadtxt(repo_file(CONV_CSV), delimiter=",")
+    k1 = kernel_wrappers()["K1"]
+    out = {}
+    for name, Eqlb in (("SE", FluxEqlbSE), ("EV", FluxEqlbEV)):
+        stats = []
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = error_estimation.run(Eqlb, 1, 1, "dirichlet", nref,
+                                    device=device, stats=stats)
+        res = {"seconds": time.perf_counter() - t0,
+               "launches": read_launches(),
+               "k1_launches_by_route": dict(k1.launches_by_route),
+               "rows": rows.tolist(), "stats": stats}
+        cpu = error_estimation.run(Eqlb, 1, 1, "dirichlet", ncpu,
+                                   device="cpu")
+        res["cpu_rows"] = ncpu
+        res["rel_vs_cpu"] = max_rel(rows[:ncpu], cpu)
+        if name == "SE":
+            res["csv_rows"] = len(want)
+            res["rel_vs_csv"] = max_rel(rows[:len(want)], want)
+        out[name] = res
+    stats = []
+    reset_launches()
+    t0 = time.perf_counter()
+    card = discont_coeff.adaptive_loop(max_iter=12, verbose=False,
+                                       device=device, stats=stats)
+    kel = {"seconds": time.perf_counter() - t0, "launches": read_launches(),
+           "k1_launches_by_route": dict(k1.launches_by_route),
+           "history": card, "stats": stats}
+    cpu = discont_coeff.adaptive_loop(max_iter=12, verbose=False,
+                                      device="cpu")
+    kel["cells_match_cpu"] = [h[0] for h in card] == [h[0] for h in cpu]
+    kel["eta_rel_cpu"] = max_rel([h[1] for h in card], [h[1] for h in cpu])
+    out["kellogg"] = kel
+    return out
+
+
+def report_uniform(un: dict, nph: int, failures: list) -> None:
+    """Print phase 14 and add its failures."""
+    cols = ("h", "cells", "err_H1", "rate", "eta", "eta_sig", "eta_osc",
+            "I_eff")
+    for name in ("SE", "EV"):
+        r = un[name]
+        log(f"[14/{nph}] uniform series {name} P1/RT1 dirichlet f64, "
+            f"{len(r['rows'])} meshes: {r['seconds']:.1f} s; launches "
+            f"{r['launches']}, K1 by route {r['k1_launches_by_route']}; vs "
+            f"the CPU port (rows 0-{r['cpu_rows'] - 1}) max rel "
+            f"{r['rel_vs_cpu']:.3e}"
+            + (f"; vs {CONV_CSV} (rows 0-{r['csv_rows'] - 1}) max rel "
+               f"{r['rel_vs_csv']:.3e}" if name == "SE" else "")
+            + " (limit 1e-10)")
+        for row, st in zip(r["rows"], r["stats"]):
+            log(f"    n={st['n']}: " + ", ".join(
+                f"{c} {v:.6g}" for c, v in zip(cols, row))
+                + f"; CG {st['cg_iterations']}; {st['seconds']:.2f} s")
+        if not r["rel_vs_cpu"] <= 1e-10:
+            failures.append(f"uniform series {name}: card and CPU disagree")
+        if name == "SE" and not r["rel_vs_csv"] <= 1e-10:
+            failures.append(f"uniform series SE disagrees with {CONV_CSV}")
+        if not all(np.isfinite(r["rows"]).ravel()):
+            failures.append(f"uniform series {name}: a value is not finite")
+        if r["launches"]["K1"] <= 0 or r["launches"]["K2"] <= 0:
+            failures.append(f"uniform series {name} skipped a kernel: "
+                            f"{r['launches']}")
+    kel = un["kellogg"]
+    log(f"[14/{nph}] Kellogg loop P1/RT1 SE f64, 12 iterations: "
+        f"{kel['seconds']:.1f} s; cells {[h[0] for h in kel['history']]}; "
+        f"eta {[float(f'{h[1]:.6e}') for h in kel['history']]}; CG "
+        f"{[s['cg_iterations'] for s in kel['stats']]}; launches "
+        f"{kel['launches']}, K1 by route {kel['k1_launches_by_route']}; vs "
+        f"the CPU port: cells identical {kel['cells_match_cpu']}, eta max rel "
+        f"{kel['eta_rel_cpu']:.3e} (limit 1e-9)")
+    if not (kel["cells_match_cpu"] and kel["eta_rel_cpu"] <= 1e-9):
+        failures.append("Kellogg loop: card and CPU disagree")
+    if kel["launches"]["K1"] <= 0 or kel["launches"]["K2"] <= 0:
+        failures.append(f"Kellogg loop skipped a kernel: {kel['launches']}")
+
+
 def kernel_entry(name, source, replaces, launches, row, errs):
     """One entry of the "kernels" line from a phase row."""
     return {"name": name, "route": "cuda", "source": source,
@@ -1180,7 +1490,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     failures = []
-    nph = 12
+    nph = 14
 
     card = card_line()
     log(card)
@@ -1349,6 +1659,14 @@ def main(argv=None) -> int:
 
     api = phase_flux_api(args.n, device)
     report_flux_api(api, nph, failures)
+    torch.cuda.empty_cache()
+
+    lsh = phase_lshape(device, timer)
+    report_lshape(lsh, nph, failures)
+    torch.cuda.empty_cache()
+
+    uni = phase_uniform(device)
+    report_uniform(uni, nph, failures)
 
     if failures:
         for f in failures:
@@ -1364,6 +1682,13 @@ def main(argv=None) -> int:
                        for r in api["cases"].values())
             for kname in kernel_wrappers()}
 
+    for name, r in lsh.items():
+        paths["lshape_adaptive_se_f64" if name == "rt3"
+              else f"lshape_adaptive_{name}_se_f64"] = r["launches"]
+    for name in ("SE", "EV"):
+        paths[f"uniform_series_{name.lower()}_f64"] = uni[name]["launches"]
+    paths["kellogg_se_f64"] = uni["kellogg"]["launches"]
+
     def total(kname):
         return sum(p[kname] for p in paths.values())
 
@@ -1374,8 +1699,9 @@ def main(argv=None) -> int:
     # K1's numbers are those of the main path's largest shape by its
     # planned route; the global route beside them
     k1_row = biggest([r for r in k1 if r["set"] == "main"], "float32")
-    flux_checks = [kc for r in api["cases"].values()
-                   for kc in r["kernel_checks"].values()]
+    flux_checks = ([kc for r in api["cases"].values()
+                    for kc in r["kernel_checks"].values()]
+                   + [r["kernel_checks"] for r in lsh.values()])
     k1_errs = ([r["max_abs_err"] for r in k1]
                + [c["max_abs_err"] for kc in flux_checks for c in kc["K1"]])
     k2_errs = ([r["max_abs_err"] for r in k2]
@@ -1403,7 +1729,15 @@ def main(argv=None) -> int:
             "mixed_f64": mixed["k1_launches_by_route"],
             **{f"flux_api_{name.lower()}_f64_{bc}":
                r["k1_launches_by_route"][name]
-               for bc, r in api["cases"].items() for name in ("SE", "EV")}})
+               for bc, r in api["cases"].items() for name in ("SE", "EV")},
+            **{"lshape_adaptive_se_f64" if name == "rt3"
+               else f"lshape_adaptive_{name}_se_f64":
+               r["k1_launches_by_route"] for name, r in lsh.items()}},
+        lshape_last_step_shapes=[
+            {key: c[key] for key in ("D", "R", "X", "route", "ms",
+                                     "plain_ms", "library_ms", "bound_ms",
+                                     "bound_by", "max_abs_err")}
+            for r in lsh.values() for c in r["kernel_checks"]["K1"]])
     # K3's numbers are its register route's; the shared route beside them
     k3_row = biggest(k3, "float64")
     entries[2].update(

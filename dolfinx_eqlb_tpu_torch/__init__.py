@@ -2,7 +2,8 @@
 
 The JAX package ``dolfinx_eqlb_tpu`` is the reference; this package grows
 beside it, module by module, with the same layout (``elements/``, ``mesh/``,
-``native/``, ``fem/``, ``eqlb/``, ``elmtlib/``, ``models/``, ``ops/``).
+``native/``, ``fem/``, ``eqlb/``, ``elmtlib/``, ``models/``,
+``estimation/``, ``ops/``; the demos in ``demos/``).
 Host precompute (mesh topology, patch extraction, dof tables) is NumPy
 copied from the reference; device stages are eager PyTorch, and every TPU
 kernel on the ported path is a hand-written CUDA kernel for Hopper
@@ -15,7 +16,17 @@ Ported so far:
 * the flux user API: ``fem`` (``Function``, expressions, ``interpolate``,
   ``local_projection``, assembly), ``eqlb`` (``fluxbc``, ``FluxEqlbSE``,
   ``FluxEqlbEV`` and the condition checks), ``elmtlib`` and
-  ``models.PoissonSolver``, the primal solve that feeds them.
+  ``models.PoissonSolver``, the primal solve that feeds them;
+* error estimation and adaptivity: ``estimation.estimate_poisson`` (SE,
+  EV, a cell-wise coefficient), ``estimation.doerfler_mark``, ``mesh``'s
+  ``lshape``, ``refine_uniform`` and ``refine_marked`` (longest-edge
+  bisection), and the demos ``demos.reconstruction``,
+  ``demos.error_estimation``, ``demos.lshape_adaptive``,
+  ``demos.discont_coeff`` and ``demos.local_projection``, each run as
+  ``python -m dolfinx_eqlb_tpu_torch.demos.<name>``.
+
+Not yet: stress equilibration and ``estimate_elasticity``, multigrid and
+the Biot and elasticity models, sharding, the I/O utilities.
 
 Entry points run on the CUDA card by default and raise without one; pass
 ``device="cpu"`` for the CPU.  Nothing here imports jax.
@@ -23,4 +34,4 @@ Entry points run on the CUDA card by default and raise without one; pass
 
 __version__ = "0.1.0"
 
-from . import elements, mesh, fem, eqlb, elmtlib, models, ops  # noqa: F401
+from . import elements, mesh, fem, eqlb, elmtlib, models, estimation, ops  # noqa: F401

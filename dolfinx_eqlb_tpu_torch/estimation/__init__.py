@@ -1,0 +1,2 @@
+from .poisson import estimate_poisson  # noqa: F401
+from .marking import doerfler_mark  # noqa: F401

@@ -22,8 +22,6 @@ Four families on triangles:
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
@@ -229,15 +227,16 @@ class FunctionSpace:
             self.block_size = 1
         self.ndofs = self.ndofs_scalar * self.block_size
 
-    # --- tabulation caches (host NumPy) -------------------------------------
-
-    @lru_cache(maxsize=32)
-    def _tab(self, pts_key):
-        pts = np.array(pts_key)
-        return self.element.tabulate(pts)
+    # --- tabulation cache (host NumPy) --------------------------------------
 
     def tabulate(self, pts: np.ndarray) -> np.ndarray:
-        return self._tab(tuple(map(tuple, np.asarray(pts))))
+        """The element's tabulation at reference points, once per point set.
+        Kept on the space (not in a module-level cache, which would hold
+        the space, its mesh and their device tables alive across the meshes
+        of an adaptive loop)."""
+        pts = np.ascontiguousarray(pts, dtype=np.float64)
+        return _cached(self, "_host_tabs", (pts.shape, pts.tobytes()),
+                       lambda: self.element.tabulate(pts))
 
     def new_function(self, device=None) -> "Function":
         return Function(self, device=device)

@@ -3,6 +3,7 @@ from .generators import (  # noqa: F401
     unit_square,
     unit_square_unstructured,
     rectangle,
+    lshape,
     permute_vertices,
 )
-from .refine import refine_facets  # noqa: F401
+from .refine import refine_uniform, refine_marked, refine_facets  # noqa: F401

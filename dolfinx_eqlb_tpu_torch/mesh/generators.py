@@ -2,9 +2,10 @@
 
 Covers the mesh families the reference obtains from DOLFINx / gmsh
 (``demo_reconstruction.py:63-246``): structured unit squares (left / right /
-crossed diagonals) and an unstructured Delaunay fixture with reversed facet
+crossed diagonals), an unstructured Delaunay fixture with reversed facet
 orientations (the role of ``create_unitsquare_gmsh`` in the reference test
-fixtures, ``test/unit/utils.py:136-176``).
+fixtures, ``test/unit/utils.py:136-176``) and the adaptive-demo L-shape
+(``poisson_adaptive/demo_lshape.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ __all__ = [
     "unit_square",
     "unit_square_unstructured",
     "rectangle",
+    "lshape",
     "permute_vertices",
 ]
 
@@ -162,3 +164,29 @@ def unit_square_unstructured(n: int, seed: int = 0) -> TriMesh:
     if np.any(msh.is_boundary_vertex & (counts == 1)):
         raise RuntimeError("could not repair 1-cell boundary patches")
     return msh
+
+
+def lshape(n: int) -> TriMesh:
+    """L-shaped domain (-1,1)^2 minus the fourth quadrant [0,1]x[-1,0],
+    structured triangulation with 2*n divisions across (-1,1)."""
+    m = 2 * n
+    x = np.linspace(-1.0, 1.0, m + 1)
+    y = np.linspace(-1.0, 1.0, m + 1)
+    idx = -np.ones((m + 1, m + 1), dtype=np.int64)
+    pts = []
+    for i in range(m + 1):
+        for j in range(m + 1):
+            if x[i] <= 0.0 or y[j] >= 0.0:
+                idx[i, j] = len(pts)
+                pts.append([x[i], y[j]])
+    cells = []
+    for i in range(m):
+        for j in range(m):
+            # quad is inside L iff not (x>0 and y<0)
+            if x[i] >= 0.0 and y[j + 1] <= 0.0:
+                continue
+            a, b = idx[i, j], idx[i + 1, j]
+            d, e = idx[i + 1, j + 1], idx[i, j + 1]
+            # bisect towards the reentrant corner for symmetry
+            cells += [[a, b, d], [a, d, e]]
+    return TriMesh(np.array(pts), np.array(cells, dtype=np.int32))

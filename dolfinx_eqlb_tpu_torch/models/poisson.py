@@ -234,5 +234,6 @@ class PoissonSolver:
             rz = rz_new
             it += 1
         self.last_iterations = it
+        self.last_maxiter = maxiter
         self.last_residual = float(torch.linalg.norm(r))
         return Function(V, x)
