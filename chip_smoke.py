@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--n 500] [--profile]
+    python3 chip_smoke.py [--n 500] [--profile] [--k1-sweep]
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc).  It builds the port's CUDA kernels from ``csrc/`` for
@@ -19,7 +19,8 @@ through its kernels and agrees with the plain route:
 
 then the flux user API end to end in f64 (K1, K2 in both equilibrators):
 ``demos/demo_reconstruction.py``'s flow with P2 primal and RT2 flux; then
-error estimation and the adaptive loops in f64 (K1 by both routes, K2):
+error estimation and the adaptive loops in f64 (K1 by its tile and block
+routes, K2):
 the port's ``demos.lshape_adaptive``, ``demos.error_estimation`` and
 ``demos.discont_coeff``, held to the JAX package's committed runs.
 
@@ -28,15 +29,16 @@ Phases, one line each:
    1. the card's name and power limit (``nvidia-smi``);
    2. the nvcc build and its time;
    3. the host precompute: mesh, patches, engine tables;
-   4. K1 (batch-last pivot-free solve) by both routes, "tile" (the
-      ``k1_plan`` pick up to its split) and "global", on the same batch,
-      timed in turns, against its plain version, at the main path's
-      shapes, the mixed path's chunk and RT3's; then each route once at a
-      small batch on each side of the split;
+   4. K1 (batch-last pivot-free solve) by every route that takes the
+      shape, "tile", "block" and "global", on the same batch, timed in
+      turns, against its plain version and ``torch.linalg.solve``, at the
+      main path's shapes, the mixed path's chunk, RT3's, the tile route's
+      split, the P4/RT4 L-shape's last step and RT4 / RT5 at the chunk;
+      then each route once on each side of each split of ``k1_plan``;
    5. K2 (dof combine) against its plain version, bitwise;
    6. the semi-explicit main path: first call, 5 strict calls, 3 x 8
       pipelined calls, launch counts (K1's by route), output checks, a
-      stage breakdown, the interior inverse build alone by both K1 routes;
+      stage breakdown, the interior inverse build alone by each K1 route;
    7. f64 parity on ``unit_square(64)``: card (kernels) against the CPU
       (plain versions);
    8. K3 (batch-major pivot-free solve) against its plain version, by the
@@ -67,11 +69,11 @@ Phases, one line each:
       CG iterations, eta, err_H1, I_eff, stage seconds, K1's launches by
       route with the step's K1 shapes, device memory); rows 0-9 held to the
       CSV (cells identical, eta and err_H1 within 1e-8 relative).  Its
-      patch systems stay at D <= 25, K1's tile route, so the same loop runs
-      at P4/RT4 (D up to the 40s, K1's global route), its first 8 rows held
-      to the port on the CPU.  On each run's last step K1 (timed, beside
-      its plain version, ``torch.linalg.solve`` and its bound) and K2
-      against their plain versions on the step's own operands;
+      patch systems stay at D <= 25, so the same loop runs at P4/RT4 (D up
+      to 49, K1's block route), its first 8 rows held to the port on the
+      CPU.  On each run's last step K1 (timed, beside its plain version,
+      ``torch.linalg.solve`` and its bound) and K2 against their plain
+      versions on the step's own operands;
   14. ``demos.error_estimation.run`` (P1/RT1, "dirichlet") for SE and EV
       at n = 2 ... 512 (up to 1,048,576 cells): SE's rows n = 2, 4, 8 held
       to ``ConvStudyFluxEqlb-SE_porder-1_eorder-1.csv`` and both series'
@@ -80,7 +82,10 @@ Phases, one line each:
       on the CPU (cells identical, eta within 1e-9 relative).
 
 Kernel times are CUDA-event means of single launches, each after a write
-of 256 MB that leaves the 50 MB L2 cold.  Any failure exits non-zero;
+of 256 MB that leaves the 50 MB L2 cold.  ``--k1-sweep`` only builds the
+kernels and times K1's tile route against its block route (several
+thread counts) over D and X, the measurement ``k1_plan``'s split rests
+on.  Any failure exits non-zero;
 nothing falls back to the CPU.  The line before the last is a JSON object
 with every kernel's launches, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -153,6 +158,13 @@ class Timer:
             events.append((start, end))
         sync(self.device)
         return sum(s.elapsed_time(e) for s, e in events) / reps
+
+    def fit(self, fn, budget_ms: float = 100.0, most: int = 5) -> float:
+        """``ms`` after one warm-up launch, with as many repetitions (1 to
+        ``most``) as fit in about ``budget_ms`` by the first timed one."""
+        once = self.ms(fn, reps=1, warmup=1)
+        reps = max(1, min(most, int(budget_ms / max(once, 1e-3))))
+        return self.ms(fn, reps=reps, warmup=0) if reps > 1 else once
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -295,17 +307,33 @@ def solve_shapes(engine):
     return shapes
 
 
+# K1 at the P4/RT4 adaptive L-shape's last step (phase 13), as the loop
+# ran before the block route:
+# the interior inverse builds (R = D) and a boundary solve (R = 1)
+K1_RT4_SHAPES = [(49, 49, 1073), (43, 43, 70), (37, 37, 190), (31, 31, 274),
+                 (28, 1, 132), (25, 25, 1022)]
+# K1 about the tile route's split at R = D (13 in f64, 17 in f32)
+K1_SPLIT_SHAPES = [(15, 15, CHUNK), (17, 17, CHUNK), (19, 19, CHUNK)]
+# K1 at RT4's and RT5's interior size at the main path's chunk: the size of
+# an RT4 / RT5 run on the crossed 1M-cell mesh
+K1_LARGE_SHAPES = [(49, 49, CHUNK), (81, 81, CHUNK)]
+
+
 def k1_shape_sets(engine, k3_shapes):
     """The shapes phase 4 takes K1 through, (set, D, R, X): the main path's
     (``solve_shapes``), the mixed path's chunk (its interior shapes at
-    X = ``CHUNK_MIXED``) and RT3's (``k3_shapes``, the D and R of an RT3
-    engine's buckets at the main path's chunk)."""
+    X = ``CHUNK_MIXED``), RT3's (``k3_shapes``, the D and R of an RT3
+    engine's buckets at the main path's chunk), the tile route's split,
+    the P4/RT4 L-shape's last step and RT4 / RT5 at the chunk."""
     main = solve_shapes(engine)
     mixed = [(D, R, CHUNK_MIXED) for D, R, X in main
              if R > 1 and X >= CHUNK_MIXED]
     return ([("main", *s) for s in main]
             + [("mixed", *s) for s in dict.fromkeys(mixed)]
-            + [("rt3", D, R, CHUNK) for D, R in k3_shapes])
+            + [("rt3", D, R, CHUNK) for D, R in k3_shapes]
+            + [("split", *s) for s in K1_SPLIT_SHAPES]
+            + [("rt4", *s) for s in K1_RT4_SHAPES]
+            + [("large", *s) for s in K1_LARGE_SHAPES])
 
 
 def rt3_solve_sizes(device):
@@ -325,15 +353,53 @@ def rt3_solve_sizes(device):
                    for key, b in eng.buckets.items()}, reverse=True)
 
 
-def phase_k1(shape_sets, device, timer):
-    """K1's A/B: at every shape, both routes ("tile", "global") on the same
-    random SPD batch, checked against the plain version and timed in turns
-    (tile, global, global, tile), beside the plain version, the library
-    call (torch.linalg.solve on the same batch) and the bound.  Then each
-    route once at a small batch on each side of the tile route's split
-    ``K1_TILE_MAX_D``, checked and not timed."""
+def k1_routes_taking(D, R, dtype) -> list:
+    """K1's routes that take the shape, in ``K1_ROUTES`` order."""
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
-        K1_TILE_MAX_D, _solve_route_bl, batched_kkt_solve_bl_plain,
+        K1_ROUTES, k1_block_fits, k1_tile_threads,
+    )
+
+    takes = {"tile": k1_tile_threads(D, dtype) is not None,
+             "block": k1_block_fits(D, R, dtype), "global": True}
+    return [rt for rt in K1_ROUTES if takes[rt]]
+
+
+def k1_batch(X, D, R, dtype, device, gen):
+    """A random SPD batch, batch-last: A (D, D, X), b (D, R, X)."""
+    Abm, bbm = spd_batch(X, D, R, dtype, device, gen)
+    A = Abm.permute(1, 2, 0).contiguous()
+    del Abm
+    b = bbm.permute(1, 2, 0).contiguous()
+    return A, b
+
+
+def k1_check(A, b, xp, route, tol, threads=None):
+    """One launch of K1 by ``route`` against the plain result ``xp``:
+    (max abs error, max error relative to max|xp|, ok)."""
+    from dolfinx_eqlb_tpu_torch.ops.patch_solve import _solve_route_bl
+
+    x = _solve_route_bl(A, b, route, threads)
+    sync(A.device)
+    err = float((x - xp).abs().max())
+    rel = err / float(xp.abs().max())
+    return err, rel, bool(torch.isfinite(x).all()) and rel <= tol
+
+
+def phase_k1(shape_sets, device, timer):
+    """K1's A/B/C: at every shape, every route that takes it ("tile",
+    "block", "global") on the same random SPD batch, checked against the
+    plain version and timed in turns (the routes, then the same in reverse
+    order), beside the plain version, the library call (torch.linalg.solve
+    on the same batch) and the bound.  Then every route that takes it once
+    on each side of each split, checked and not timed: the tile route's
+    ``K1_TILE_MAX_D`` (R = D) and ``K1_TILE_MAX_D_R1`` (R = 1) at the chunk,
+    its ``K1_TILE_MIN_X`` at D = 9, its ``K1_TILE_SMALL_D`` at R = 1 and
+    the main path's boundary X = 1996, and the block route's shared-memory
+    limit (R = D, X = 64)."""
+    from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
+        K1_TILE_MAX_D, K1_TILE_MAX_D_R1, K1_TILE_MIN_X, K1_TILE_SMALL_D,
+        _solve_route_bl,
+        batched_kkt_solve_bl_plain, k1_block_fits, k1_block_threads,
         k1_plan, k1_tile_threads,
     )
 
@@ -341,75 +407,140 @@ def phase_k1(shape_sets, device, timer):
     rows, edges = [], []
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
         for name, D, R, X in shape_sets:
-            Abm, bbm = spd_batch(X, D, R, dtype, device, gen)
-            A = Abm.permute(1, 2, 0).contiguous()
-            b = bbm.permute(1, 2, 0).contiguous()
-            del Abm, bbm
+            A, b = k1_batch(X, D, R, dtype, device, gen)
             xp = batched_kkt_solve_bl_plain(A, b)
-            scale = float(xp.abs().max())
-            route = k1_plan(D, R, dtype)
+            route = k1_plan(D, R, dtype, X=X)
+            routes = k1_routes_taking(D, R, dtype)
             row = dict(set=name, dtype=dname(dtype), D=D, R=R, X=X,
-                       route=route, ok=True)
-            for rt in ("tile", "global"):
-                x = _solve_route_bl(A, b, rt)
-                sync(device)
-                err = float((x - xp).abs().max())
-                row[f"{rt}_max_abs_err"] = err
-                row[f"{rt}_max_rel_err"] = err / scale
-                row["ok"] &= bool(torch.isfinite(x).all()) and err / scale <= tol
-                del x
+                       route=route, routes=routes, ok=True)
+            for rt in routes:
+                err, rel, ok = k1_check(A, b, xp, rt, tol)
+                row[f"{rt}_max_abs_err"], row[f"{rt}_max_rel_err"] = err, rel
+                row["ok"] &= ok
             del xp
-            t = {"tile": [], "global": []}
-            for rt in ("tile", "global", "global", "tile"):
-                t[rt].append(timer.ms(lambda: _solve_route_bl(A, b, rt),
-                                      reps=5))
-            row["tile_ms"] = sum(t["tile"]) / 2
-            row["global_ms"] = sum(t["global"]) / 2
+            t = {rt: [] for rt in routes}
+            for rt in routes + routes[::-1]:
+                t[rt].append(timer.fit(lambda: _solve_route_bl(A, b, rt)))
+            for rt in routes:
+                row[f"{rt}_ms"] = sum(t[rt]) / 2
             row["ms"] = row[f"{route}_ms"]
             row["max_abs_err"] = row[f"{route}_max_abs_err"]
-            row["plain_ms"] = timer.ms(lambda: batched_kkt_solve_bl_plain(A, b),
-                                       reps=3, warmup=1)
-            row["library_ms"] = timer.ms(
+            row["plain_ms"] = timer.fit(
+                lambda: batched_kkt_solve_bl_plain(A, b), 300.0, 3)
+            row["library_ms"] = timer.fit(
                 lambda: torch.linalg.solve(A.permute(2, 0, 1),
-                                           b.permute(2, 0, 1)),
-                reps=3, warmup=1)
+                                           b.permute(2, 0, 1)), 300.0, 3)
             row["bound_ms"], row["bound_by"] = lu_bound(D, R, X, dtype)
             row["tile_threads"] = k1_tile_threads(D, dtype)
+            row["block_threads"] = k1_block_threads(D, R, X, dtype)
             rows.append(row)
-            log(f"    K1 {name} {dname(dtype)} D={D} R={R} X={X}: tile "
-                f"{row['tile_ms']:.4f} ms (max_rel_err "
-                f"{row['tile_max_rel_err']:.3e}, {row['tile_threads']} "
-                f"systems a block), global {row['global_ms']:.4f} ms "
-                f"(max_rel_err {row['global_max_rel_err']:.3e}), limit "
-                f"{tol:g}; plan {route}; plain {row['plain_ms']:.4f} ms, "
-                f"torch.linalg.solve {row['library_ms']:.4f} ms, bound "
-                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), share "
-                f"{row['bound_ms'] / row['ms']:.3f}, tile/global "
-                f"{row['global_ms'] / row['tile_ms']:.2f}x"
+            log(f"    K1 {name} {dname(dtype)} D={D} R={R} X={X}: "
+                + ", ".join(f"{rt} {row[f'{rt}_ms']:.4f} ms (max_rel_err "
+                            f"{row[f'{rt}_max_rel_err']:.3e})"
+                            for rt in routes)
+                + f", limit {tol:g}; plan {route} (tile "
+                f"{row['tile_threads']} systems a block, block "
+                f"{row['block_threads']} threads); plain "
+                f"{row['plain_ms']:.4f} ms, torch.linalg.solve "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+                f"({row['bound_by']}), share "
+                f"{row['bound_ms'] / row['ms']:.4f}, library/plan "
+                f"{row['library_ms'] / row['ms']:.2f}x"
                 f"{'' if row['ok'] else '  FAILED'}")
             del A, b
-        split = K1_TILE_MAX_D[dtype]
-        for D in (split, split + 1):
-            Abm, bbm = spd_batch(4096, D, D, dtype, device, gen)
-            A = Abm.permute(1, 2, 0).contiguous()
-            b = bbm.permute(1, 2, 0).contiguous()
+            torch.cuda.empty_cache()
+        split, split1 = K1_TILE_MAX_D[dtype], K1_TILE_MAX_D_R1[dtype]
+        top = max(D for D in range(1, 400) if k1_block_fits(D, D, dtype))
+        for D, R, X in ((split, split, CHUNK), (split + 1, split + 1, CHUNK),
+                        (split1, 1, CHUNK), (split1 + 1, 1, CHUNK),
+                        (9, 9, K1_TILE_MIN_X - 1), (9, 9, K1_TILE_MIN_X),
+                        (K1_TILE_SMALL_D, 1, 1996),
+                        (K1_TILE_SMALL_D + 1, 1, 1996),
+                        (top, top, 64), (top + 1, top + 1, 64)):
+            A, b = k1_batch(X, D, R, dtype, device, gen)
             xp = batched_kkt_solve_bl_plain(A, b)
-            for rt in ("tile", "global"):
-                if rt == "tile" and k1_tile_threads(D, dtype) is None:
-                    continue
-                x = _solve_route_bl(A, b, rt)
-                sync(device)
-                rel = float((x - xp).abs().max()) / float(xp.abs().max())
-                ok = bool(torch.isfinite(x).all()) and rel <= tol
-                edges.append(dict(dtype=dname(dtype), D=D, R=D, X=4096,
-                                  route=rt, plan=k1_plan(D, D, dtype),
-                                  max_rel_err=rel, ok=ok))
-                log(f"    K1 split check {dname(dtype)} D={D} R={D} X=4096: "
-                    f"{rt} (plan {k1_plan(D, D, dtype)}) max_rel_err="
-                    f"{rel:.3e} (limit {tol:g}){'' if ok else '  FAILED'}")
-                del x
-            del A, b, Abm, bbm, xp
+            plan = k1_plan(D, R, dtype, X=X)
+            for rt in k1_routes_taking(D, R, dtype):
+                _, rel, ok = k1_check(A, b, xp, rt, tol)
+                edges.append(dict(dtype=dname(dtype), D=D, R=R, X=X,
+                                  route=rt, plan=plan, max_rel_err=rel,
+                                  ok=ok))
+                log(f"    K1 split check {dname(dtype)} D={D} R={R} X={X}: "
+                    f"{rt} (plan {plan}) max_rel_err={rel:.3e} (limit "
+                    f"{tol:g}){'' if ok else '  FAILED'}")
+            del A, b, xp
     return rows, edges
+
+
+def phase_k1_sweep(device, timer):
+    """The tile route against the block route (its planned threads and
+    128, 256, 512), each checked against the plain version and timed, over
+    D and X where the plan chooses between them; then the block route's
+    threads at the P4/RT4 L-shape's shapes and RT4 / RT5 at the chunk."""
+    from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
+        _solve_route_bl, batched_kkt_solve_bl_plain, k1_block_threads,
+        k1_plan, k1_tile_threads,
+    )
+
+    shapes = ([(D, D, X) for D in (5, 9, 13, 15, 17, 19, 21, 23, 25)
+               for X in (1024, 4096, 16384, 65536, CHUNK)]
+              + [(D, 1, X) for D in (5, 9, 15, 25)
+                 for X in (1024, 16384, CHUNK)]
+              + K1_RT4_SHAPES + [(49, 49, CHUNK), (81, 81, CHUNK // 4)])
+    gen = torch.Generator(device=device).manual_seed(3)
+    rows = []
+    for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
+        for D, R, X in shapes:
+            A, b = k1_batch(X, D, R, dtype, device, gen)
+            xp = batched_kkt_solve_bl_plain(A, b)
+            planned = k1_block_threads(D, R, X, dtype)
+            variants = [("tile", None)] if k1_tile_threads(D, dtype) else []
+            variants += [("block", nt) for nt in
+                         dict.fromkeys((planned, 128, 256, 512))]
+            row = dict(dtype=dname(dtype), D=D, R=R, X=X,
+                       plan=k1_plan(D, R, dtype, X=X), threads=planned,
+                       ok=True, ms={})
+            for rt, nt in variants:
+                _, rel, ok = k1_check(A, b, xp, rt, tol, nt)
+                key = rt if nt is None else f"block_t{nt}"
+                row["ms"][key] = timer.fit(
+                    lambda: _solve_route_bl(A, b, rt, nt), 40.0)
+                row["ok"] &= ok
+                if not ok:
+                    row.setdefault("failed", []).append((key, rel))
+            rows.append(row)
+            best = min(row["ms"], key=row["ms"].get)
+            log(f"    K1 sweep {row['dtype']} D={D} R={R} X={X}: plan "
+                f"{row['plan']} (block {planned} threads); best {best} "
+                f"{row['ms'][best]:.4f} ms; " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in row["ms"].items())
+                + ("" if row["ok"] else f"  FAILED {row['failed']}"))
+            del A, b, xp
+            torch.cuda.empty_cache()
+    return rows
+
+
+def k1_plan_two_routes(D, R, dtype, X=None) -> str:
+    """K1's plan before the block route: tile up to D = 25, else global."""
+    return "tile" if D <= 25 else "global"
+
+
+def phase_k1_loop_plans(device) -> dict:
+    """The P4/RT4 adaptive L-shape by K1's plan before the block route
+    (``k1_plan_two_routes``) and by ``k1_plan``, in turns: the loop's and the last
+    step's equilibration seconds and K1's device time by route."""
+    out = {}
+    for name, plan in (("two_routes", k1_plan_two_routes), ("plan", None),
+                       ("plan_again", None), ("two_routes_again", k1_plan_two_routes)):
+        r = lshape_loop(4, device, label=f"P4/RT4 {name}", plan=plan)
+        out[name] = {"seconds": r["seconds"], "iterations": r["iterations"],
+                     "equilibrate_s": r["stage_totals_s"]["equilibrate"],
+                     "last_equilibrate_s":
+                         r["steps"][-1]["stages_s"]["equilibrate"],
+                     "k1_launches_by_route": r["k1_launches_by_route"],
+                     "k1_ms_by_route": r["k1_ms_by_route"]}
+        log(f"    P4/RT4 loop by {name}: {json.dumps(out[name])}")
+    return out
 
 
 def check_k1_routes(path, by_route, shapes, dtype, failures):
@@ -417,7 +548,7 @@ def check_k1_routes(path, by_route, shapes, dtype, failures):
     the path's shapes."""
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import k1_plan
 
-    planned = {k1_plan(D, R, dtype) for D, R, _ in shapes}
+    planned = {k1_plan(D, R, dtype, X=X) for D, R, X in shapes}
     stray = {rt: n for rt, n in by_route.items() if n and rt not in planned}
     if stray:
         failures.append(f"{path} launched K1 routes its shapes do not plan "
@@ -535,8 +666,9 @@ def phase_main(engine, data, device, profile=False):
         kernel_wrappers()["K1"].launches_by_route)
     res.update(timing)
     res["inverse_build_ms"] = inverse_build_ms(engine, device)
-    res["inverse_build_global_ms"] = inverse_build_ms(engine, device,
-                                                      "global")
+    res["inverse_build_ms_by_route"] = {
+        rt: inverse_build_ms(engine, device, rt)
+        for rt in kernel_wrappers()["K1"].launches_by_route}
     res["patches"] = npatches
     res["patches_per_s_strict"] = npatches / (res["strict_ms_median"] / 1e3)
     res["patches_per_s_pipelined"] = npatches / (res["pipelined_ms_min"] / 1e3)
@@ -931,7 +1063,7 @@ def flux_kernel_checks(eq, timer=None) -> dict:
         rel = err / float(xp.abs().max())
         D, R, X = b.shape
         row = dict(dtype=dname(A.dtype), D=D, R=R, X=X, max_abs_err=err,
-                   max_rel_err=rel, route=k1_plan(D, R, A.dtype),
+                   max_rel_err=rel, route=k1_plan(D, R, A.dtype, X=X),
                    ok=bool(torch.isfinite(x).all()) and rel <= 1e-12)
         if timer is not None:
             row["ms"] = timer.ms(lambda: batched_kkt_solve_bl(A, b), reps=5)
@@ -1172,18 +1304,63 @@ def max_rel(got, want) -> float:
     return float(rel.max()) if rel.size else 0.0
 
 
+class K1Clock:
+    """Device time of every K1 call by route while open: CUDA events around
+    each call of ``ops.patch_solve._solve_route_bl`` on a card tensor, read
+    once after the run (launch overhead between the events included).
+    ``plan(D, R, X, dtype)``, if given, replaces ``k1_plan`` for the calls
+    that do not name a route."""
+
+    def __init__(self, plan=None):
+        self.plan, self.events = plan, []
+
+    def __enter__(self):
+        from dolfinx_eqlb_tpu_torch.ops import patch_solve
+
+        self.module, self.orig = patch_solve, patch_solve._solve_route_bl
+
+        def timed(A, b, route, threads=None):
+            if A.device.type != "cuda":
+                return self.orig(A, b, route, threads)
+            route = route or (self.plan or patch_solve.k1_plan)(
+                *b.shape[:2], A.dtype, X=b.shape[2])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            x = self.orig(A, b, route, threads)
+            end.record()
+            self.events.append((route, start, end))
+            return x
+
+        patch_solve._solve_route_bl = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module._solve_route_bl = self.orig
+
+    def ms_by_route(self) -> dict:
+        if self.events:
+            self.events[-1][2].synchronize()
+        out = {}
+        for route, start, end in self.events:
+            out[route] = out.get(route, 0.0) + start.elapsed_time(end)
+        return out
+
+
 def lshape_loop(order: int, device, max_iter: int = 90, timer=None,
-                label: str = "") -> dict:
+                label: str = "", plan=None) -> dict:
     """``demos.lshape_adaptive.adaptive_loop`` on ``device``, P``order`` /
     RT``order`` SE, f64, from ``lshape(2)``, theta 0.6, until eta <= 1e-6
     or ``max_iter`` iterations, one line per step: cells, CG
     iterations against ``maxiter``, eta, err_H1, I_eff, seconds per stage,
     K1's launches by route with the (D, R, X) of every K1 call of the
     step's engine, K2's launches, device memory held at the step's end and
-    the step's peak.  Launches are counted from just before the loop to
-    just after it.  Then K1 and K2 against their plain versions on the last
-    step's own operands (``flux_kernel_checks``, K1 timed with ``timer``),
-    and the device memory left once the loop's objects are gone."""
+    the step's peak.  Launches are counted, and K1's device time by route
+    clocked (``K1Clock``; ``plan`` replaces ``k1_plan``), from just before
+    the loop to just after it.  Then K1 and K2 against their plain versions
+    on the last step's own operands (``flux_kernel_checks``, K1 timed with
+    ``timer``), and the device memory left once the loop's objects are
+    gone."""
     import gc
 
     from dolfinx_eqlb_tpu_torch.demos import lshape_adaptive
@@ -1232,11 +1409,13 @@ def lshape_loop(order: int, device, max_iter: int = 90, timer=None,
                if cuda else ""))
 
     t0 = time.perf_counter()
-    msh, _ = lshape_adaptive.adaptive_loop(
-        order, order, theta, tol, max_iter, verbose=False, device=device,
-        step_hook=hook)
+    with K1Clock(plan) as clock:
+        msh, _ = lshape_adaptive.adaptive_loop(
+            order, order, theta, tol, max_iter, verbose=False, device=device,
+            step_hook=hook)
     res = {"order": order, "theta": theta, "tol": tol, "max_iter": max_iter,
            "seconds": time.perf_counter() - t0,
+           "k1_ms_by_route": clock.ms_by_route(),
            "launches": read_launches(),
            "k1_launches_by_route": dict(k1.launches_by_route),
            "steps": steps, "iterations": len(steps),
@@ -1311,7 +1490,10 @@ def report_lshape(ls: dict, nph: int, failures: list) -> None:
                         r["stage_totals_s"].items())
             + f"; CG maxiter hit on {sum(r['cg_hit_maxiter'])} steps; "
             f"launches {r['launches']}, K1 by route "
-            f"{r['k1_launches_by_route']}; largest K1 system D = "
+            f"{r['k1_launches_by_route']} taking (ms, CUDA events) "
+            + ", ".join(f"{rt} {ms:.2f}" for rt, ms in
+                        r["k1_ms_by_route"].items())
+            + f"; largest K1 system D = "
             f"{r['max_D']}; peak {r['peak_gib']:.3f} GiB, left after the "
             f"loop {r['mem_left_gib']:.4f} GiB")
         if name == "rt3":
@@ -1355,14 +1537,12 @@ def report_lshape(ls: dict, nph: int, failures: list) -> None:
                             "plain version at the last step's shapes")
         log("    detail: " + json.dumps(
             {key: val for key, val in r.items() if key != "steps"}))
-    globl = sum(r["k1_launches_by_route"]["global"] for r in ls.values())
-    checked = [c for r in ls.values() for c in r["kernel_checks"]["K1"]
-               if c["route"] == "global"]
-    if globl <= 0:
-        failures.append("the L-shape path never launched K1's global route")
-    if not checked:
-        failures.append("K1's global route was not held against its plain "
-                        "version at an L-shape shape")
+    r4 = ls["rt4"]
+    if r4["k1_launches_by_route"]["block"] <= 0:
+        failures.append("the P4/RT4 L-shape never launched K1's block route")
+    if not any(c["route"] == "block" for c in r4["kernel_checks"]["K1"]):
+        failures.append("K1's block route was not held against its plain "
+                        "version at a P4/RT4 L-shape shape")
 
 
 def phase_uniform(device, nref: int = 9, ncpu: int = 5) -> dict:
@@ -1472,6 +1652,9 @@ def main(argv=None) -> int:
                     help="crossed unit square with 4 n^2 cells (default 500)")
     ap.add_argument("--profile", action="store_true",
                     help="also print a torch.profiler table of one call")
+    ap.add_argument("--k1-sweep", action="store_true",
+                    help="only build the kernels and time K1's block-route "
+                    "variants beside the tile and global routes")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1487,6 +1670,7 @@ def main(argv=None) -> int:
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import k3_plan
 
     device = torch.device("cuda", 0)
+    marks = [("start", time.perf_counter())]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     failures = []
@@ -1508,6 +1692,11 @@ def main(argv=None) -> int:
         elif "registers" in line or "spill" in line:
             log(f"    ptxas: {line.strip()}")
     timer = Timer(device)
+    if args.k1_sweep:
+        rows = phase_k1_sweep(device, timer)
+        loops = phase_k1_loop_plans(device)
+        print(json.dumps({"k1_sweep": rows, "loops": loops}), flush=True)
+        return 0 if all(r["ok"] for r in rows) else 1
 
     k = 2
     t0 = time.perf_counter()
@@ -1533,9 +1722,12 @@ def main(argv=None) -> int:
 
     shapes = solve_shapes(engine)
     shape_sets = k1_shape_sets(engine, rt3_solve_sizes(device))
-    log(f"[4/{nph}] K1 (both routes) vs plain at the main path's shapes "
-        f"{shapes}, the mixed path's chunk and RT3's:")
+    log(f"[4/{nph}] K1 (every route that takes the shape) vs plain at the "
+        f"main path's shapes {shapes}, the mixed path's chunk, RT3's, the "
+        f"tile split's, the P4/RT4 L-shape's last step and RT4 / RT5 at the "
+        f"chunk:")
     k1, k1_edges = phase_k1(shape_sets, device, timer)
+    marks.append(("1-4", time.perf_counter()))
     if not all(r["ok"] for r in k1 + k1_edges):
         failures.append("K1 disagrees with its plain version")
 
@@ -1546,6 +1738,7 @@ def main(argv=None) -> int:
         failures.append("K2 is not bitwise equal to its plain version")
 
     x, main_res = phase_main(engine, data, device, profile=args.profile)
+    marks.append(("5-6", time.perf_counter()))
     launches = main_res["launches"]
     log(f"[6/{nph}] main path unit_square({args.n}) RT2 f32 1 field, "
         f"{main_res['patches']} patches: first call "
@@ -1557,7 +1750,9 @@ def main(argv=None) -> int:
         f"({main_res['patches_per_s_pipelined']:.4g} patches/s); launches "
         f"{launches}, K1 by route {main_res['k1_launches_by_route']}; "
         f"interior inverse build {main_res['inverse_build_ms']:.3f} ms "
-        f"(global route {main_res['inverse_build_global_ms']:.3f} ms); "
+        f"(by route " + ", ".join(
+            f"{rt} {ms:.3f} ms" for rt, ms in
+            main_res["inverse_build_ms_by_route"].items()) + "); "
         f"finite {main_res['finite']}; max|x - plain| "
         f"{main_res['max_abs_err_vs_plain']:.3e} (limit "
         f"{main_res['err_limit']:.3e})")
@@ -1582,6 +1777,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     par = phase_f64_parity(device)
+    marks.append(("7", time.perf_counter()))
     log(f"[7/{nph}] f64 parity unit_square({par['n']}) ({par['cells']} "
         f"cells), card vs CPU: max_abs_err {par['max_abs_err']:.3e} "
         f"(limit {par['limit']:.3e}){'' if par['ok'] else '  FAILED'}")
@@ -1596,11 +1792,13 @@ def main(argv=None) -> int:
     log(f"[8/{nph}] K3 (both routes) vs plain at the KKT path's shapes "
         f"{shapes3} (f64 engine tables {t_tables64:.2f} s):")
     k3, k3_tiles = phase_k3(shapes3, device, timer)
+    marks.append(("8", time.perf_counter()))
     if not all(r["ok"] for r in k3 + k3_tiles):
         failures.append("K3 disagrees with its plain version")
     torch.cuda.empty_cache()
 
     kkt = phase_kkt(eng64, msh, device)
+    marks.append(("9", time.perf_counter()))
     for dt, r in kkt.items():
         log(f"[9/{nph}] KKT path unit_square({args.n}) RT2 {dt} 1 field: "
             f"first call {r['first_call_s']:.3f} s; strict "
@@ -1634,6 +1832,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     mixed = phase_mixed(V, buckets, msh, device)
+    marks.append(("10-11", time.perf_counter()))
     log(f"[11/{nph}] mixed path unit_square({args.n}) RT2 f64 1 field, "
         f"kernel_mixed + ds, {mixed['chunks']} chunks: first call "
         f"{mixed['first_call_s']:.3f} s (geometry caches "
@@ -1658,16 +1857,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     api = phase_flux_api(args.n, device)
+    marks.append(("12", time.perf_counter()))
     report_flux_api(api, nph, failures)
     torch.cuda.empty_cache()
 
     lsh = phase_lshape(device, timer)
+    marks.append(("13", time.perf_counter()))
     report_lshape(lsh, nph, failures)
     torch.cuda.empty_cache()
 
     uni = phase_uniform(device)
+    marks.append(("14", time.perf_counter()))
     report_uniform(uni, nph, failures)
 
+    log("seconds by phase (host clock, each to the end of its run): "
+        + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t) in
+                    zip(marks, marks[1:])))
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
@@ -1697,7 +1902,7 @@ def main(argv=None) -> int:
                    key=lambda r: r["D"] * r["D"] * r["X"])
 
     # K1's numbers are those of the main path's largest shape by its
-    # planned route; the global route beside them
+    # planned route; the block and global routes beside them
     k1_row = biggest([r for r in k1 if r["set"] == "main"], "float32")
     flux_checks = ([kc for r in api["cases"].values()
                     for kc in r["kernel_checks"].values()]
@@ -1721,9 +1926,18 @@ def main(argv=None) -> int:
     for entry in entries:
         entry["launches_by_path"] = {
             name: p[entry["name"][:2]] for name, p in paths.items()}
+    def k1_err(route):
+        return max(r[f"{route}_max_abs_err"] for r in k1
+                   if route in r["routes"])
+
     entries[0].update(
-        k1_route=k1_row["route"], global_ms=k1_row["global_ms"],
-        global_max_abs_err=max(r["global_max_abs_err"] for r in k1),
+        k1_route=k1_row["route"], block_ms=k1_row["block_ms"],
+        block_max_abs_err=k1_err("block"), global_ms=k1_row["global_ms"],
+        global_max_abs_err=k1_err("global"),
+        rt4_shapes=[{key: r.get(key) for key in (
+            "dtype", "D", "R", "X", "route", "tile_ms", "block_ms",
+            "global_ms", "plain_ms", "library_ms", "bound_ms")}
+            for r in k1 if r["set"] in ("rt4", "large")],
         launches_by_route={
             "semiexplicit_f32": main_res["k1_launches_by_route"],
             "mixed_f64": mixed["k1_launches_by_route"],
@@ -1732,7 +1946,10 @@ def main(argv=None) -> int:
                for bc, r in api["cases"].items() for name in ("SE", "EV")},
             **{"lshape_adaptive_se_f64" if name == "rt3"
                else f"lshape_adaptive_{name}_se_f64":
-               r["k1_launches_by_route"] for name, r in lsh.items()}},
+               r["k1_launches_by_route"] for name, r in lsh.items()},
+            **{f"uniform_series_{name.lower()}_f64":
+               uni[name]["k1_launches_by_route"] for name in ("SE", "EV")},
+            "kellogg_se_f64": uni["kellogg"]["k1_launches_by_route"]},
         lshape_last_step_shapes=[
             {key: c[key] for key in ("D", "R", "X", "route", "ms",
                                      "plain_ms", "library_ms", "bound_ms",

@@ -15,18 +15,22 @@
 // D^2 + 2 D R values per system.  The batch is the minor axis, so element
 // (i, c) of system p sits at (i * D + c) * X + p and neighbouring systems
 // sit at neighbouring addresses — the batch-last layout coalesces with no
-// relayout.  Two routes, one thread per system in both; the wrapper picks
-// one (ops/patch_solve.py::k1_plan):
+// relayout.  Three routes; the wrapper picks one from the shape
+// (ops/patch_solve.py::k1_plan):
 //
-// * "global" (lu_solve_bl_kernel): copies A into a global
-//   scratch buffer and b into the output, then eliminates in place in
-//   global memory, every update a read-modify-write through L1/L2 with
-//   int64 index arithmetic.  It takes any D, and serves the sizes the tile
-//   route does not take.
-// * "tile" (lu_solve_bl_tile_kernel, below): each block's systems staged in
-//   shared memory, factored once, right-hand sides swept a column at a
-//   time; A is read once, b read once, x written once and nothing else
-//   leaves the chip.
+// * "tile" (lu_solve_bl_tile_kernel, below), the small systems: one thread
+//   per system, each block's systems staged in shared memory, factored
+//   once, right-hand sides swept a column at a time; A is read once, b
+//   read once, x written once and nothing else leaves the chip.
+// * "block" (lu_solve_bl_block_kernel, below), the larger systems (RT4 and
+//   RT5 give D = 28-81, and small batches of any D): one thread block per
+//   system, [A | b] staged in shared memory and eliminated there by every
+//   thread of the block, one barrier a step.  It takes any system whose
+//   [A | b] fits in a block's shared memory.
+// * "global" (lu_solve_bl_kernel), the rest: one thread per system, copies
+//   A into a global scratch buffer and b into the output, then eliminates
+//   in place in global memory, every update a read-modify-write through
+//   L1/L2 with int64 index arithmetic.  It takes any D.
 //
 // The TPU kernel's pad of D to a multiple of 8 was a Mosaic unroll artefact
 // and is dropped; any D works.
@@ -122,8 +126,9 @@ int launch(const void* A, const void* b, void* As, void* x, int64_t D,
 // SM; shared memory, D^2 NT values a block, is what bounds the larger ones.
 // On-chip state is D^2 + D values per system whatever R is, which is what
 // the interior inverse build (R = D) needs.  The wrapper caps D per dtype
-// (k1_plan, from H100 measurements in PERF.md) and takes the global route
-// above it.
+// and takes it only for batches large enough to fill the card (k1_plan,
+// from H100 measurements in PERF.md); the block route below serves the
+// rest.
 
 // one cp.async of a single value (4 or 8 bytes) into shared memory
 template <typename T>
@@ -257,6 +262,155 @@ int launch_bl_tile(const void* A, const void* b, void* x, int64_t D,
   EQLB_K1_TILES(EQLB_K1_DISPATCH)
 #undef EQLB_K1_DISPATCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K1, block route: the same batch-last solve, one thread block per
+// system, for the systems the tile route serves badly.
+//
+// Replaces the same Pallas kernel as the routes above.  What held the
+// global route, which served these sizes before, at 5-24x behind
+// torch.linalg.solve on the H100 (D = 28-49 at X = 70-1,073): one thread
+// per system leaves the card nearly empty at such X (70 systems are 70
+// threads of one SM), and each thread runs ~2/3 D^3 + D^2 R dependent
+// read-modify-writes of global memory.  The tile route, one thread per
+// system as well, has the same floor at small X.  What bounds this kernel
+// instead: at D = 49 a system is ~4,800 values and ~97,000 multiply-adds
+// of elimination, so the work is on chip; each update is a load and a
+// store of shared memory (16 bytes in f64 against the SM's 128 a clock).
+// On the H100 that traffic is the limit (~22 us of SM time a system at
+// D = R = 49 in f64, 5 blocks an SM, at X = 1,073 and 131,072 alike;
+// PERF.md), not HBM (8-10 % of the bound) nor the barrier a step.  Design:
+// - Fill the card: block x takes system x, so 70 systems occupy 70 SMs.
+//   The block's threads come from the wrapper
+//   (ops/patch_solve.py::k1_block_threads): more where few blocks share an
+//   SM.  Blocks of 2 or 4 adjacent systems (whole 32-byte sectors of the
+//   batch-last rows) were slower at every shape on the H100 (PERF.md).
+// - Stage: [A | b] is copied with 4- or 8-byte cp.async (rows of the
+//   batch-last arrays start misaligned at an odd X) into dynamic shared
+//   memory as a D x (D + R) tile at row stride ld, odd where it fits
+//   (column reads by consecutive lanes then fall in distinct banks).
+//   Nothing goes through a global scratch.
+// - Eliminate with one barrier a step.  At the barrier that opens step j,
+//   column j below the diagonal holds the multipliers l_i = a_ij / a_jj
+//   (the plain version's division) and rows > j the trailing values.  In
+//   step j each thread first forms its rows' multipliers of step j + 1,
+//   a_i,j+1 - l_i a_j,j+1 divided by the next pivot, which it recomputes
+//   from values no thread writes in step j, and stores them over column
+//   j + 1; then the warps share the trailing update of columns j + 2 ...
+//   W - 1 of [A | b] (the forward substitution rides in the b columns), a
+//   warp on consecutive columns of a row.  Thread 0 writes the pivot of
+//   step j in place, from the same three values by the same fma, so every
+//   copy of a pivot is bitwise one value.  Every read in a step is of a
+//   value written before its barrier, and each value is written by one
+//   thread: there is no shared-memory race.
+// - Back substitution, right-hand sides in parallel: a thread per column r
+//   of b, for j descending x_j = (y_j - sum_c U_jc x_c) / U_jj, U read
+//   from shared memory (a broadcast: the warp's threads read one address),
+//   y and x in the tile's b columns; no barrier.  Each x_j is written once,
+//   straight to the batch-last output.
+// Every shared access is a row base plus a column offset in int; the only
+// int64 arithmetic is the global address.  Tensor cores (a blocked
+// trailing update on f64 DMMA), a persistent grid that overlaps the next
+// system's load with this one's elimination, and TMA are not used.
+
+constexpr int kBlockMaxThreads = 512;
+
+// one elimination update, a - l u, as one fma: the pivots are formed by
+// this function in two places and must agree bit for bit
+template <typename T>
+__device__ __forceinline__ T elim(T a, T l, T u) {
+  return fma(-l, u, a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlockMaxThreads)
+lu_solve_bl_block_kernel(const T* __restrict__ A, const T* __restrict__ b,
+                         T* __restrict__ x, int D, int R, int ld,
+                         int64_t X) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* S = reinterpret_cast<T*>(smem);  // entry (i, c) at S[i * ld + c]
+  const int W = D + R;
+  const int tx = threadIdx.x, ty = threadIdx.y, nw = blockDim.y;
+  const int tid = ty * 32 + tx, nt = 32 * nw;
+  const int64_t p = blockIdx.x;
+
+  // stage [A | b]: warps over rows, lanes over columns
+  for (int i = ty; i < D; i += nw) {
+    const T* Ai = A + p + static_cast<int64_t>(i) * D * X;
+    const T* bi = b + p + static_cast<int64_t>(i) * R * X;
+    for (int c = tx; c < W; c += 32)
+      cp_async_value(S + i * ld + c,
+                     c < D ? Ai + static_cast<int64_t>(c) * X
+                           : bi + static_cast<int64_t>(c - D) * X);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the multipliers of step 0
+  for (int i = 1 + tid; i < D; i += nt) S[i * ld] /= S[0];
+  __syncthreads();
+
+  for (int j = 0; j < D; ++j) {
+    const T* Sj = S + j * ld;
+    // the pivot of step j, in place (step 0's is the staged value)
+    if (j > 0 && tid == 0) S[j * ld + j] = elim(Sj[j], Sj[j - 1], Sj[j - ld]);
+    if (j + 1 < D) {
+      // the multipliers of step j + 1, rows j + 2 ... D - 1
+      const T u = Sj[j + 1];
+      const T* Sn = Sj + ld;  // row j + 1
+      for (int i = j + 2 + tid; i < D; i += nt) {
+        T* Si = S + i * ld;
+        Si[j + 1] = elim(Si[j + 1], Si[j], u) / elim(Sn[j + 1], Sn[j], u);
+      }
+      // the trailing update, rows j + 1 ... D - 1, columns j + 2 ... W - 1
+      for (int i = j + 1 + ty; i < D; i += nw) {
+        T* Si = S + i * ld;
+        const T l = Si[j];
+        for (int c = j + 2 + tx; c < W; c += 32) Si[c] = elim(Si[c], l, Sj[c]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // back substitution: a thread per right-hand side
+  const int64_t RX = static_cast<int64_t>(R) * X;
+  for (int r = tid; r < R; r += nt) {
+    T* y = S + D + r;  // column r of b, row stride ld
+    T* xo = x + p + static_cast<int64_t>(r) * X;
+    for (int j = D - 1; j >= 0; --j) {
+      const T* Uj = S + j * ld;
+      T acc = 0;
+      for (int c = j + 1; c < D; ++c) acc = fma(Uj[c], y[c * ld], acc);
+      const T xj = (y[j * ld] - acc) / Uj[j];
+      y[j * ld] = xj;
+      xo[j * RX] = xj;
+    }
+  }
+}
+
+template <typename T>
+int launch_bl_block(const void* A, const void* b, void* x, int64_t D,
+                    int64_t R, int64_t X, int64_t threads, void* stream) {
+  const int64_t size = sizeof(T);
+  const int64_t W = D + R;
+  // the row stride: W, made odd where the tile still fits
+  const int64_t ld = (W % 2 == 1 || D * (W + 1) * size > kMaxSmem) ? W : W + 1;
+  const int64_t smem = D * ld * size;
+  if (X <= 0 || D < 1 || R < 1 || smem > kMaxSmem || X > 0x7fffffff ||
+      threads % 32 != 0 || threads < 32 || threads > kBlockMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = lu_solve_bl_block_kernel<T>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(X),
+           dim3(32, static_cast<unsigned>(threads / 32)),
+           static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<const T*>(b), static_cast<T*>(x),
+      static_cast<int>(D), static_cast<int>(R), static_cast<int>(ld), X);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K3: the same pivot-free solve, batch-major, one thread block per system.
@@ -604,6 +758,18 @@ int eqlb_lu_solve_bl_tiles(int64_t* out, int64_t cap) {
   constexpr int64_t n = sizeof(tiles) / sizeof(tiles[0]);
   for (int64_t e = 0; e < n && e < cap; ++e) out[e] = tiles[e];
   return static_cast<int>(n / 3);
+}
+
+int eqlb_lu_solve_bl_block_f32(const void* A, const void* b, void* x,
+                               int64_t D, int64_t R, int64_t X,
+                               int64_t threads, void* stream) {
+  return launch_bl_block<float>(A, b, x, D, R, X, threads, stream);
+}
+
+int eqlb_lu_solve_bl_block_f64(const void* A, const void* b, void* x,
+                               int64_t D, int64_t R, int64_t X,
+                               int64_t threads, void* stream) {
+  return launch_bl_block<double>(A, b, x, D, R, X, threads, stream);
 }
 
 int eqlb_lu_solve_bm_f32(const void* A, const void* b, void* x, int64_t N,

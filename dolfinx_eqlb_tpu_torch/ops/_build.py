@@ -49,6 +49,10 @@ _SIGNATURES = {
     "eqlb_lu_solve_bl_tile_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
     # (out, cap): the tile route's built tiles, BYTES0, DMAX0, NT0, ...
     "eqlb_lu_solve_bl_tiles": [_P, _I],
+    # (A, b, x, D, R, X, threads, stream): K1's block route, a block of
+    # threads per system
+    "eqlb_lu_solve_bl_block_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "eqlb_lu_solve_bl_block_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
     # (flat, src, out, R, L, ndofs, nfk, stream)
     "eqlb_combine_gather_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "eqlb_combine_gather_f64": [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -6,12 +6,18 @@ are in ``csrc/patch_solve.cu``, whose notes say what bounds each on the card
 and how its design answers.
 
 * K1, ``batched_kkt_solve_bl`` (entry ``batched_kkt_solve_bl``): batch-last
-  A (D, D, X), the semi-explicit engine's small reduced systems; one thread
-  per system, batch-last so every access coalesces, by one of two routes
-  that ``k1_plan`` picks from the shape: up to ``K1_TILE_MAX_D`` the tile
-  route (each block's systems staged in shared memory, factored once, the
-  right-hand sides swept a column at a time in registers), else the global
-  route (elimination in place in a global scratch, any D).
+  A (D, D, X), the semi-explicit engine's reduced systems, by one of three
+  routes that ``k1_plan`` picks from the shape.  The tile route (one
+  thread per system, each block's systems staged in shared memory,
+  factored once, the right-hand sides swept a column at a time in
+  registers) takes D up to ``K1_TILE_MAX_D`` (``K1_TILE_MAX_D_R1`` at
+  R = 1) in batches of at least ``K1_TILE_MIN_X``, large enough to fill
+  the card, and the smallest boundary solves (R = 1, D up to
+  ``K1_TILE_SMALL_D``) in any batch.  The block route (one thread block per system, [A | b]
+  eliminated in shared memory by the whole block, one barrier a step)
+  takes the rest while [A | b] fits in a block's shared memory
+  (``k1_block_fits``); the global route (one thread per system,
+  elimination in place in a global scratch, any D) takes what is left.
 * K3, ``batched_kkt_solve`` (entry ``batched_kkt_solve``): batch-major
   A (..., P, D, D), the KKT mode's full patch systems, D in the tens; one
   thread block per system, by one of two routes that ``k3_plan`` picks
@@ -40,7 +46,9 @@ import torch
 from . import _build
 
 __all__ = ["batched_kkt_solve_bl", "batched_kkt_solve_bl_plain", "k1_plan",
-           "k1_tile_threads", "K1_ROUTES", "K1_TILES", "K1_TILE_MAX_D",
+           "k1_tile_threads", "k1_block_fits", "k1_block_threads",
+           "K1_ROUTES", "K1_TILES", "K1_TILE_MAX_D", "K1_TILE_MAX_D_R1",
+           "K1_TILE_MIN_X", "K1_TILE_SMALL_D",
            "batched_kkt_solve", "batched_kkt_solve_plain", "k3_plan",
            "K3_REG_TILES", "K3_ROUTES"]
 
@@ -48,16 +56,24 @@ _FUNCS = {torch.float32: "eqlb_lu_solve_bl_f32",
           torch.float64: "eqlb_lu_solve_bl_f64"}
 _FUNCS_BL_TILE = {torch.float32: "eqlb_lu_solve_bl_tile_f32",
                   torch.float64: "eqlb_lu_solve_bl_tile_f64"}
+_FUNCS_BL_BLOCK = {torch.float32: "eqlb_lu_solve_bl_block_f32",
+                   torch.float64: "eqlb_lu_solve_bl_block_f64"}
 _FUNCS_BM = {torch.float32: "eqlb_lu_solve_bm_f32",
              torch.float64: "eqlb_lu_solve_bm_f64"}
 _FUNCS_BM_REG = {torch.float32: "eqlb_lu_solve_bm_reg_f32",
                  torch.float64: "eqlb_lu_solve_bm_reg_f64"}
 # dynamic shared memory one thread block can hold: D (D + R) values of
-# K3's shared route, D^2 nt values of K1's tile route
+# K3's shared route, D^2 nt values of K1's tile route, D (D + R) of K1's
+# block route
 SMEM_LIMIT = 232448
-# K1's routes: "tile" (systems staged in shared memory, the column in
-# registers) and "global" (elimination in place in a global scratch)
-K1_ROUTES = ("tile", "global")
+# K1's routes: "tile" (a thread per system, systems staged in shared
+# memory, the column in registers), "block" (a thread block per system,
+# [A | b] in shared memory) and "global" (a thread per system, elimination
+# in place in a global scratch)
+K1_ROUTES = ("tile", "block", "global")
+# shared memory of one H100 SM that blocks can share, what the hardware
+# reserves of it per block (CUDA occupancy rules), and the SMs
+_SM_SMEM, _SMEM_PER_BLOCK, _SMS = 233472, 1024, 132
 # K1's tile route: dtype -> its tiles (DMAX, NT), DMAX ascending.  A
 # system of D <= DMAX holds its right-hand-side column in DMAX registers,
 # and a block holds NT systems (one thread each), so shared memory is
@@ -67,12 +83,21 @@ K1_ROUTES = ("tile", "global")
 # checks that the library was built with it.
 K1_TILES = {torch.float32: ((8, 128), (16, 64), (32, 32)),
             torch.float64: ((8, 64), (16, 32), (32, 32))}
-# the split: the largest D the tile route takes, by dtype; larger systems
-# take the global route.  On the H100 the tile route is ahead at every
-# RT2 and RT3 size up to RT3's largest, D = 25 (level with the global
-# route there in f64); above it nothing was measured at full size
-# (PERF.md).
-K1_TILE_MAX_D = {torch.float32: 25, torch.float64: 25}
+# the split: the largest D the tile route takes, by dtype, for R > 1 (the
+# interior inverse builds, R = D) and for R = 1 (the boundary solves), in
+# batches of at least K1_TILE_MIN_X; at R = 1 it also takes D up to
+# K1_TILE_SMALL_D in a batch of any size.  The block route takes the rest.
+# On the H100 (``chip_smoke.py --k1-sweep`` and phase 4, PERF.md) the tile
+# route is ahead at R = D up to D = 17 in f32 and 13 in f64, at R = 1 up
+# to 25 and 15, and only at X >= 16384 (measured at 1024, 4096, 16384,
+# 65536 and 131072): it fills the card only with many systems, one thread
+# each, while a smaller batch leaves each thread a long serial
+# elimination.  At R = 1 and D <= 6 that chain is short, and the tile
+# route is ahead or level at every X measured (4-131072).
+K1_TILE_MAX_D = {torch.float32: 17, torch.float64: 13}
+K1_TILE_MAX_D_R1 = {torch.float32: 25, torch.float64: 15}
+K1_TILE_MIN_X = 16384
+K1_TILE_SMALL_D = 6
 # K3's register route: route name -> (MR, MC), the register tile of each
 # thread of a block laid out 8 x 16 over [A | b]; a tile covers D <= 8 MR
 # rows and W = D + R <= 16 MC columns.  Smallest first: k3_plan takes the
@@ -137,19 +162,42 @@ def k1_tile_threads(D: int, dtype: torch.dtype) -> int | None:
     return None
 
 
-def k1_plan(D: int, R: int, dtype: torch.dtype) -> str:
-    """K1's route for D x D systems with R right-hand sides: ``"tile"`` up
-    to the split ``K1_TILE_MAX_D[dtype]``, else ``"global"``.  The tile
-    route's on-chip state is D^2 + D values a system whatever R is, so R
-    does not move the split."""
-    return "tile" if D <= K1_TILE_MAX_D[dtype] else "global"
+def k1_block_fits(D: int, R: int, dtype: torch.dtype) -> bool:
+    """Whether a block of K1's block route holds the system's [A | b],
+    D (D + R) values, in its shared memory."""
+    return _shared_fits(D, R, dtype)
+
+
+def k1_block_threads(D: int, R: int, X: int, dtype: torch.dtype) -> int:
+    """Threads a block of K1's block route for X systems D x D with R
+    right-hand sides: about 1,280 threads an SM shared by the blocks that
+    sit on it at once (by shared memory, and no more than X spreads over
+    the SMs), 128 to 512 a block (the best of 64-512 within ~10 % at every
+    shape of ``chip_smoke.py --k1-sweep`` on the H100, PERF.md)."""
+    tile = D * (D + R) * dtype.itemsize
+    blocks = min(32, _SM_SMEM // (tile + _SMEM_PER_BLOCK),
+                 -(-max(X, 1) // _SMS))
+    return 32 * max(4, min(16, 40 // max(blocks, 1)))
+
+
+def k1_plan(D: int, R: int, dtype: torch.dtype, X: int | None = None) -> str:
+    """K1's route for X systems D x D with R right-hand sides: ``"tile"``
+    up to the split (``K1_TILE_MAX_D[dtype]``, ``K1_TILE_MAX_D_R1`` at
+    R = 1) at X >= ``K1_TILE_MIN_X`` (or X not given), and at R = 1 up to
+    ``K1_TILE_SMALL_D`` at any X; else ``"block"`` while [A | b] fits in a
+    block's shared memory (``k1_block_fits``); else ``"global"``."""
+    cap = (K1_TILE_MAX_D_R1 if R == 1 else K1_TILE_MAX_D)[dtype]
+    if D <= cap and (X is None or X >= K1_TILE_MIN_X) \
+            or R == 1 and D <= K1_TILE_SMALL_D:
+        return "tile"
+    return "block" if k1_block_fits(D, R, dtype) else "global"
 
 
 def batched_kkt_solve_bl(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batch-last solve: A (D, D, X), b (D, R, X) -> x (D, R, X), pivot-free.
 
     CPU tensors take the plain version; CUDA tensors launch the K1 kernel
-    of the route ``k1_plan(D, R, dtype)`` picks.
+    of the route ``k1_plan(D, R, dtype, X=X)`` picks.
     ``batched_kkt_solve_bl.launches`` counts the launches,
     ``batched_kkt_solve_bl.launches_by_route`` splits them."""
     return _solve_route_bl(A, b, None)
@@ -173,11 +221,12 @@ def _check_tiles(lib) -> None:
 _tiles_checked = False
 
 
-def _solve_route_bl(A: torch.Tensor, b: torch.Tensor,
-                    route: str | None) -> torch.Tensor:
+def _solve_route_bl(A: torch.Tensor, b: torch.Tensor, route: str | None,
+                    threads: int | None = None) -> torch.Tensor:
     """``batched_kkt_solve_bl`` by ``route`` (one of ``K1_ROUTES`` that
     takes the shape; None: ``k1_plan``'s), for comparing the routes on one
-    batch.  Only the global route allocates a scratch."""
+    batch; ``threads`` overrides the block route's ``k1_block_threads``.
+    Only the global route allocates a scratch."""
     if A.dim() != 3 or b.dim() != 3 or A.shape[0] != A.shape[1] \
             or b.shape[0] != A.shape[0] or b.shape[2] != A.shape[2]:
         raise ValueError(
@@ -191,11 +240,14 @@ def _solve_route_bl(A: torch.Tensor, b: torch.Tensor,
         raise ValueError("A and b must be contiguous")
     D, R, X = b.shape
     if route is None:
-        route = k1_plan(D, R, A.dtype)
+        route = k1_plan(D, R, A.dtype, X=X)
     elif route not in K1_ROUTES:
         raise ValueError(f"unknown K1 route {route!r}; one of {K1_ROUTES}")
     elif route == "tile" and k1_tile_threads(D, A.dtype) is None:
         raise ValueError(f"K1 route 'tile' does not take D={D} in {A.dtype}")
+    elif route == "block" and not k1_block_fits(D, R, A.dtype):
+        raise ValueError(f"K1 route 'block' does not take D={D}, R={R} in "
+                         f"{A.dtype}")
     if A.device.type == "cpu":
         return batched_kkt_solve_bl_plain(A, b)
     if A.device.type != "cuda":
@@ -213,6 +265,11 @@ def _solve_route_bl(A: torch.Tensor, b: torch.Tensor,
             code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
                                       x.data_ptr(), D, R, X,
                                       k1_tile_threads(D, A.dtype), stream)
+        elif route == "block":
+            name = _FUNCS_BL_BLOCK[A.dtype]
+            code = getattr(lib, name)(
+                A.data_ptr(), b.data_ptr(), x.data_ptr(), D, R, X,
+                threads or k1_block_threads(D, R, X, A.dtype), stream)
         else:
             scratch = torch.empty_like(A)
             name = _FUNCS[A.dtype]

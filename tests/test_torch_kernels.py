@@ -30,10 +30,12 @@ from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
 from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
 from dolfinx_eqlb_tpu_torch.mesh import unit_square, unit_square_unstructured
 from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
-    K1_ROUTES, K1_TILE_MAX_D, K1_TILES, K3_REG_TILES, SMEM_LIMIT,
-    _check_reg_tiles, _check_tiles, _solve_route, _solve_route_bl,
-    batched_kkt_solve, batched_kkt_solve_bl, batched_kkt_solve_bl_plain,
-    batched_kkt_solve_plain, k1_plan, k1_tile_threads, k3_plan,
+    K1_ROUTES, K1_TILE_MAX_D, K1_TILE_MAX_D_R1, K1_TILE_MIN_X,
+    K1_TILE_SMALL_D, K1_TILES,
+    K3_REG_TILES, SMEM_LIMIT, _check_reg_tiles, _check_tiles, _solve_route,
+    _solve_route_bl, batched_kkt_solve, batched_kkt_solve_bl,
+    batched_kkt_solve_bl_plain, batched_kkt_solve_plain, k1_block_fits,
+    k1_block_threads, k1_plan, k1_tile_threads, k3_plan,
 )
 
 torch.set_num_threads(2)
@@ -49,13 +51,14 @@ def _spd_batch(D, R, X, seed):
             np.ascontiguousarray(np.moveaxis(b, 0, -1)))
 
 
-@pytest.mark.parametrize("D", [4, 6, 9, 13, 15, 25])
+@pytest.mark.parametrize("D", [4, 6, 9, 13, 15, 25, 28, 37, 49])
 @pytest.mark.parametrize("rhs", ["one", "square"])
 def test_k1_plain_matches_pallas_and_linalg(D, rhs):
-    """D = 4-9 are RT2's system sizes, 13, 15 and 25 RT3's; R = D is the
-    interior inverse build, R = 1 a boundary solve."""
+    """D = 4-9 are RT2's system sizes, 13, 15 and 25 RT3's, 28, 37 and 49
+    RT4's (the block route's); R = D is the interior inverse build, R = 1
+    a boundary solve."""
     R = 1 if rhs == "one" else D
-    A, b = _spd_batch(D, R, 200, seed=D * 10 + R)
+    A, b = _spd_batch(D, R, 200 if D <= 25 else 64, seed=D * 10 + R)
     x_jax = np.asarray(jax_k1(jnp.asarray(A, jnp.float64),
                               jnp.asarray(b, jnp.float64)))
     At = torch.tensor(A, dtype=torch.float64)
@@ -92,48 +95,82 @@ def test_k1_wrapper_rejects_bad_shapes():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("rhs", ["one", "square"])
 def test_k1_plan_covers_every_size(rhs, dtype):
-    """Every D from 1 to 64 has a route, "tile" exactly up to the split
-    ``K1_TILE_MAX_D``; below it the tile of D is the first of
-    ``K1_TILES`` whose DMAX covers D, its NT a multiple of 32, and a block
-    of NT systems fits in shared memory."""
-    split = K1_TILE_MAX_D[dtype]
+    """Every D from 1 to 128, at a large batch (X = 131072, or X not
+    given) and a small one, has a route: "tile" exactly up to the split
+    (``K1_TILE_MAX_D``, ``K1_TILE_MAX_D_R1`` at R = 1) at X >=
+    ``K1_TILE_MIN_X`` and at R = 1 up to ``K1_TILE_SMALL_D`` at any X,
+    "block" exactly where the tile route does not take
+    the system and [A | b] fits in a block's shared memory, "global" only
+    beyond that.  The tile of D is the first of ``K1_TILES`` whose DMAX
+    covers D, its NT a multiple of 32, and a block of NT systems fits in
+    shared memory; the block route's threads are 128-512, whole warps."""
+    split = (K1_TILE_MAX_D_R1 if rhs == "one" else K1_TILE_MAX_D)[dtype]
     assert split <= K1_TILES[dtype][-1][0]
-    for D in range(1, 65):
+    for D in range(1, 129):
         R = 1 if rhs == "one" else D
-        route = k1_plan(D, R, dtype)
-        assert route in K1_ROUTES
-        assert (route == "tile") == (D <= split), (D, route)
-        if route == "tile":
-            dmax, nt = next(t for t in K1_TILES[dtype] if D <= t[0])
-            assert k1_tile_threads(D, dtype) == nt
-            assert nt % 32 == 0 and 32 <= nt <= 256
-            assert D * D * nt * dtype.itemsize <= SMEM_LIMIT
+        fits = D * (D + R) * dtype.itemsize <= SMEM_LIMIT
+        assert k1_block_fits(D, R, dtype) == fits
+        for X in (None, 131072, K1_TILE_MIN_X, K1_TILE_MIN_X - 1, 70):
+            route = k1_plan(D, R, dtype, X=X)
+            assert route in K1_ROUTES
+            tile = (D <= split and (X is None or X >= K1_TILE_MIN_X)
+                    or R == 1 and D <= K1_TILE_SMALL_D)
+            assert (route == "tile") == tile, (D, X, route)
+            assert (route == "block") == (not tile and fits), (D, X, route)
+            assert (route == "global") == (not tile and not fits)
+            if route == "tile":
+                dmax, nt = next(t for t in K1_TILES[dtype] if D <= t[0])
+                assert k1_tile_threads(D, dtype) == nt
+                assert nt % 32 == 0 and 32 <= nt <= 256
+                assert D * D * nt * dtype.itemsize <= SMEM_LIMIT
+            if route == "block":
+                threads = k1_block_threads(D, R, X or 131072, dtype)
+                assert threads % 32 == 0 and 128 <= threads <= 512
+        # the callers' form, without X, plans as a large batch
+        assert k1_plan(D, R, dtype) == k1_plan(D, R, dtype, X=131072)
+    # the block route's shared-memory limit: R = D up to 120 in f64 and
+    # 170 in f32, R = 1 up to 169 and 240
+    top = {torch.float32: (170, 240), torch.float64: (120, 169)}[dtype]
+    D = top[0] if rhs == "square" else top[1]
+    R = D if rhs == "square" else 1
+    assert k1_plan(D, R, dtype) == "block"
+    assert k1_plan(D + 1, R + (rhs == "square"), dtype) == "global"
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
 @pytest.mark.parametrize("mesh", ["crossed", "unstructured"])
 def test_k1_plan_takes_engine_shapes(mesh, k):
     """The K1 shapes of the engine's buckets on the engine tests' meshes
     (interior inverse builds R = D, boundary solves R = 1) map as the plan
-    says: every one of RT1-RT3 (D <= 25) to the tile route, in f32 and
-    f64."""
+    says, in f32 and f64: every one of RT1-RT3 (D <= 25) to the tile route
+    in a large batch where it is under the split, every one of RT4 (D up
+    to 49) above the split to the block route; and at the meshes' own
+    small batches every one to the block route but the smallest boundary
+    solves (R = 1, D <= ``K1_TILE_SMALL_D``), which keep the tile route."""
     msh = unit_square(3) if mesh == "crossed" else unit_square_unstructured(4)
     eng = EqlbEngine(FunctionSpace(msh, "RT", k), build_patches(msh),
                      dtype=torch.float64, device="cpu")
     shapes = {(eng.se_static[key]["Dz"],
-               1 if b.is_boundary else eng.se_static[key]["Dz"])
+               1 if b.is_boundary else eng.se_static[key]["Dz"],
+               eng.tables[key]["gdofs"].shape[0])
               for key, b in eng.buckets.items()}
-    assert max(D for D, _ in shapes) == {1: 1, 2: 9, 3: 25}[k]
-    for D, R in shapes:
+    assert max(D for D, _, _ in shapes) == {1: 1, 2: 9, 3: 25, 4: 49}[k]
+    for D, R, X in shapes:
+        assert X < K1_TILE_MIN_X
         for dtype in (torch.float32, torch.float64):
-            assert D <= K1_TILE_MAX_D[dtype]
-            assert k1_plan(D, R, dtype) == "tile", (D, R, dtype)
+            split = (K1_TILE_MAX_D_R1 if R == 1 else K1_TILE_MAX_D)[dtype]
+            want = "tile" if D <= split else "block"
+            assert k1_plan(D, R, dtype) == want, (D, R, dtype)
+            small = "tile" if R == 1 and D <= K1_TILE_SMALL_D else "block"
+            assert k1_plan(D, R, dtype, X=X) == small, (D, R, X, dtype)
+    if k == 4:
+        assert (49, 49) in {(D, R) for D, R, _ in shapes}
 
 
 def test_k1_wrapper_routes_on_cpu():
     """On CPU tensors every route that takes the shape is the plain
-    version and launches nothing; a route that cannot take the shape, or
-    an unknown one, raises."""
+    version, bitwise, and launches nothing; a route that cannot take the
+    shape, or an unknown one, raises."""
     A, b = _spd_batch(7, 3, 40, seed=6)
     At, bt = torch.tensor(A), torch.tensor(b)
     before = dict(batched_kkt_solve_bl.launches_by_route)
@@ -141,15 +178,27 @@ def test_k1_wrapper_routes_on_cpu():
     for route in (*K1_ROUTES, None):
         torch.testing.assert_close(_solve_route_bl(At, bt, route), ref,
                                    rtol=0, atol=0)
-    assert batched_kkt_solve_bl.launches_by_route == before
+    for threads in (128, 512):  # the block route's threads do not matter
+        torch.testing.assert_close(_solve_route_bl(At, bt, "block", threads),
+                                   ref, rtol=0, atol=0)
     for dtype in (torch.float32, torch.float64):
-        D = K1_TILE_MAX_D[dtype] + 1  # above the split: global, by plan
-        Ab = torch.eye(D, dtype=dtype)[:, :, None].repeat(1, 1, 3)
-        bb = torch.ones(D, 1, 3, dtype=dtype)
-        assert k1_plan(D, 1, dtype) == "global"
-        for route in (*K1_ROUTES, None):
-            torch.testing.assert_close(_solve_route_bl(Ab, bb, route), bb,
-                                       rtol=0, atol=0)
+        # above the tile split: block, by plan; past the block route's
+        # shared memory: global
+        for D, R, plan in ((K1_TILE_MAX_D_R1[dtype] + 1, 1, "block"),
+                           ({torch.float32: 171,
+                             torch.float64: 121}[dtype], None, "global")):
+            R = R or D
+            Ab = torch.eye(D, dtype=dtype)[:, :, None].repeat(1, 1, 3)
+            bb = torch.ones(D, R, 3, dtype=dtype)
+            assert k1_plan(D, R, dtype) == plan
+            routes = [rt for rt in K1_ROUTES
+                      if (rt != "tile" or k1_tile_threads(D, dtype))
+                      and (rt != "block" or k1_block_fits(D, R, dtype))]
+            assert plan in routes
+            for route in (*routes, None):
+                torch.testing.assert_close(_solve_route_bl(Ab, bb, route), bb,
+                                           rtol=0, atol=0)
+    assert batched_kkt_solve_bl.launches_by_route == before
     # no tile covers D = 33; at D = 31 a block of 32 f64 systems exceeds
     # a block's shared memory
     for D, dtype in ((33, torch.float32), (31, torch.float64)):
@@ -157,6 +206,10 @@ def test_k1_wrapper_routes_on_cpu():
         with pytest.raises(ValueError):
             _solve_route_bl(torch.eye(D, dtype=dtype)[:, :, None],
                             torch.ones(D, 1, 1, dtype=dtype), "tile")
+    # [A | b] of D = 121, R = D in f64 exceeds a block's shared memory
+    with pytest.raises(ValueError):
+        _solve_route_bl(torch.eye(121, dtype=torch.float64)[:, :, None],
+                        torch.ones(121, 121, 1, dtype=torch.float64), "block")
     with pytest.raises(ValueError):
         _solve_route_bl(At, bt, "shared")
 
