@@ -22,7 +22,10 @@ then the flux user API end to end in f64 (K1, K2 in both equilibrators):
 error estimation and the adaptive loops in f64 (K1 by its tile and block
 routes, K2):
 the port's ``demos.lshape_adaptive``, ``demos.error_estimation`` and
-``demos.discont_coeff``, held to the JAX package's committed runs.
+``demos.discont_coeff``, held to the JAX package's committed runs; then
+weakly symmetric stress equilibration (K1, K2 and K3 on its operands):
+the stress engine, the elasticity user flow and its committed runs, the
+KKT mode and the reduced formulation, and the adaptive Cook loop.
 
 Phases, one line each:
 
@@ -79,7 +82,36 @@ Phases, one line each:
       to ``ConvStudyFluxEqlb-SE_porder-1_eorder-1.csv`` and both series'
       rows up to n = 32 to the port on the CPU (1e-10 relative); then the
       Kellogg loop (``demos.discont_coeff``, 12 iterations) on the card and
-      on the CPU (cells identical, eta within 1e-9 relative).
+      on the CPU (cells identical, eta within 1e-9 relative);
+  15. the stress engine at ``bench.py --stress``'s headline (the crossed
+      ``unit_square(n)``, RT2, two stress rows of f32 random DG data,
+      chunk 131072, ``weak_symmetry=True``): the same engine without weak
+      symmetry, the stress caches, strict and pipelined times, launches
+      (K1's by route), ``torch.linalg.solve`` calls per call, peak memory,
+      the result against the plain route, K1 and K2 against their plain
+      versions on the call's operands; then f64 on ``unit_square(64)``
+      with compatible data (the exact polynomial stress; a linear stress
+      with mixed traction rows), card against CPU within 1e-11 with the
+      regularisation masks compared;
+  16. the elasticity user flow (``demos.elasticity.run``: u formulation,
+      P2 primal, RT2, weak symmetry, Korn constants,
+      ``estimate_elasticity``) on ``unit_square(n)``, f64: stage seconds,
+      CG iterations against ``maxiter``, the checks, eta and its parts,
+      I_eff, launches, peak memory, K1 and K2 on the equilibrator's
+      operands; then the rows of the four committed
+      ``artifacts/ConvStudyElasticity-*.csv`` (n = 4 ... 32; u-p runs
+      MINRES) within 1e-8 relative;
+  17. the same flow on ``unit_square(64)`` in the KKT mode against the
+      semi-explicit mode (1e-9), K3's launches by route and K3 on the
+      call's operands; ``stress.weak_symmetry_bucket_reduced`` on a
+      boundary bucket of ``unit_square_unstructured(32)`` (its K3 solve
+      against the plain version, its correction against the cached one
+      within 1e-9) and on an interior bucket (vanishing pivots counted);
+  18. the adaptive Cook loop (``demos.cook_adaptive``: P2 primal, RT3,
+      theta 0.5, ``cook_membrane(2, 2)``): the demo's 6 iterations and
+      overkill reference, the first 10 iterations against the CPU, the
+      loop run on to 50,000 cells (one line per step), and 2 iterations at
+      RT2, where the corner patches are grouped.
 
 Kernel times are CUDA-event means of single launches, each after a write
 of 256 MB that leaves the 50 MB L2 cold.  ``--k1-sweep`` only builds the
@@ -1023,15 +1055,21 @@ def phase_mixed(V, buckets, msh, device):
 
 def flux_kernel_checks(eq, timer=None) -> dict:
     """K1 and K2 against their plain versions on an equilibrator's own
-    operands, at the shapes its engine (one bucket per patch shape, no
-    chunks) gives them: every K1 solve of one more ``equilibrate_fluxes``
-    call (the boundary buckets' masked systems, R = 1), the interior
+    operands (``engine_kernel_checks`` of one more ``equilibrate_fluxes``
+    call)."""
+    return engine_kernel_checks(eq.engine, eq.equilibrate_fluxes, timer)
+
+
+def engine_kernel_checks(eng, call, timer=None) -> dict:
+    """K1 and K2 against their plain versions on an engine's own operands,
+    at the shapes its buckets give them: every K1 solve of one more
+    ``call()`` (the boundary buckets' masked systems, R = 1), the interior
     buckets' inverse builds from the cached A_z (R = D), and the call's
     combine.  K1 within 1e-12 of the plain solve relative to its largest
-    entry, in f64; K2 bitwise.  With a ``timer``, each K1 operand set is
-    also timed by the route ``k1_plan`` picks, beside its plain version,
-    ``torch.linalg.solve`` and its bound.  Run after the path's launches
-    are read."""
+    entry in f64 (1e-4 in f32); K2 bitwise.  With a ``timer``, each K1
+    operand set is also timed by the route ``k1_plan`` picks, beside its
+    plain version, ``torch.linalg.solve`` and its bound.  Run after the
+    path's launches are read."""
     from dolfinx_eqlb_tpu_torch.ops.lane_select import (
         combine_gather, combine_gather_plain,
     )
@@ -1039,13 +1077,12 @@ def flux_kernel_checks(eq, timer=None) -> dict:
         batched_kkt_solve_bl, batched_kkt_solve_bl_plain, k1_plan,
     )
 
-    eng = eq.engine
     solves, flats = [], []
     solve, combine = eng._dense_solve_bl, eng._combine_flat
     eng._dense_solve_bl = lambda A, b: solves.append((A, b)) or solve(A, b)
     eng._combine_flat = lambda flat: flats.append(flat) or combine(flat)
     try:
-        eq.equilibrate_fluxes()
+        call()
     finally:
         del eng._dense_solve_bl, eng._combine_flat
     dev, _ = eng._device_tables()
@@ -1062,9 +1099,10 @@ def flux_kernel_checks(eq, timer=None) -> dict:
         err = float((x - xp).abs().max())
         rel = err / float(xp.abs().max())
         D, R, X = b.shape
+        tol = 1e-12 if A.dtype == torch.float64 else 1e-4
         row = dict(dtype=dname(A.dtype), D=D, R=R, X=X, max_abs_err=err,
                    max_rel_err=rel, route=k1_plan(D, R, A.dtype, X=X),
-                   ok=bool(torch.isfinite(x).all()) and rel <= 1e-12)
+                   ok=bool(torch.isfinite(x).all()) and rel <= tol)
         if timer is not None:
             row["ms"] = timer.ms(lambda: batched_kkt_solve_bl(A, b), reps=5)
             row["plain_ms"] = timer.ms(
@@ -1633,6 +1671,706 @@ def report_uniform(un: dict, nph: int, failures: list) -> None:
         failures.append(f"Kellogg loop skipped a kernel: {kel['launches']}")
 
 
+# --- slice 4: weakly symmetric stress ------------------------------------------------
+
+# the committed elasticity runs that phase 16 is held to: (formulation,
+# primal order, equilibration degree); u-p runs MINRES
+ELASTICITY_CSVS = [("u", 2, 2), ("u", 2, 3), ("up", 2, 3), ("up", 2, 4)]
+# their limits, on each column against max(|value|, eta): CG (u) runs agree
+# to 1e-11; MINRES (u-p) stops at rtol 1e-12 after a count of iterations
+# that the order of its sums moves by one or two, and that residual reaches
+# eta_osc: at RT4, n = 32 the port moves eta by 1.1e-8 and eta_osc by
+# 2.3e-5 of itself on the CPU and on the card alike
+ELASTICITY_CSV_LIMIT = {"u": 1e-8, "up": 1e-7}
+
+
+def poly_stress(deg: int):
+    """tests/test_stress.py's exact symmetric polynomial stress
+    sigma = [[x^d + 2y, xy], [xy, y^d - x]]: its rows and divergences."""
+    d = deg
+    rows = (lambda x: np.stack([x[..., 0] ** d + 2 * x[..., 1],
+                                x[..., 0] * x[..., 1]], -1),
+            lambda x: np.stack([x[..., 0] * x[..., 1],
+                                x[..., 1] ** d - x[..., 0]], -1))
+    fs = (lambda x: d * x[..., 0] ** (d - 1) + x[..., 0],
+          lambda x: x[..., 1] + d * x[..., 1] ** (d - 1))
+    return rows, fs
+
+
+# tests/test_stress_bc_layouts.py's linear stress sigma = [[x, y], [y, 2 - x]]
+LINEAR_STRESS = ((lambda x: np.stack([x[..., 0], x[..., 1]], -1),
+                  lambda x: np.stack([x[..., 1], 2.0 - x[..., 0]], -1)),
+                 (lambda x: 2.0 * np.ones(x.shape[:-1]),
+                  lambda x: np.zeros(x.shape[:-1])))
+
+
+def stress_flow(msh, deg, device, data, traction=False, mode="semiexplicit"):
+    """FluxEqlbSE with stress and Korn constants on projected ``data``
+    (rows, divergences), f64: all boundary facets primal-Dirichlet, or
+    with ``traction`` the layout of tests/test_stress_bc_layouts.py's
+    layout 9 (row 0 traction on x = 0 and y = 0, row 1 on y = 0), which
+    mixes traction rows on the corner patches.  Returns the equilibrator,
+    the projections and the check verdicts."""
+    from dolfinx_eqlb_tpu_torch.eqlb import FluxEqlbSE, checks, fluxbc
+    from dolfinx_eqlb_tpu_torch.fem import (
+        FunctionSpace, expr_from_callable, local_projection,
+    )
+
+    rows, fs = data
+    rhs = local_projection(FunctionSpace(msh, "DG", deg - 1), list(fs),
+                           quadrature_degree=8, device=device)
+    proj = local_projection(
+        FunctionSpace(msh, "DG", deg - 1, vs=2),
+        [expr_from_callable(r, msh, value_size=2) for r in rows],
+        quadrature_degree=8, device=device)
+    eq = FluxEqlbSE(deg, msh, rhs, proj, equilibrate_stress=True,
+                    estimate_korn_constant=True)
+    eq.engine.mode = mode
+    if traction:
+        left, bot, right, top = (msh.locate_boundary_facets(
+            lambda x, a=a, v=v: np.isclose(x[..., a], v))
+            for a, v in ((0, 0.0), (1, 0.0), (0, 1.0), (1, 1.0)))
+        normal = {"left": np.array([-1.0, 0.0]), "bot": np.array([0.0, -1.0])}
+        prime = [np.concatenate([right, top]),
+                 np.concatenate([right, top, left])]
+        bcs = [[fluxbc(lambda x: rows[0](x) @ normal["left"], left, None),
+                fluxbc(lambda x: rows[0](x) @ normal["bot"], bot, None)],
+               [fluxbc(lambda x: rows[1](x) @ normal["bot"], bot, None)]]
+        eq.set_boundary_conditions(prime, bcs)
+    else:
+        eq.set_boundary_conditions([msh.boundary_facets] * 2, [[], []])
+    eq.equilibrate_fluxes()
+    verdicts = {}
+    for i in range(2):
+        verdicts[f"divergence_{i}"] = checks.check_divergence_condition(
+            eq.list_flux[i], proj[i], rhs[i])
+        verdicts[f"jump_{i}"] = checks.check_jump_condition(
+            eq.list_flux[i], proj[i])
+    verdicts["weak_symmetry"] = checks.check_weak_symmetry_condition(
+        eq.list_flux, proj)
+    return {"eq": eq, "proj": proj, "rhs": rhs, "checks": verdicts}
+
+
+def sing_counts(engine) -> dict:
+    """Patches per boundary bucket whose masked stress system took the
+    rank-1 regularisation in the engine's last weak-symmetry call."""
+    return {str(key): int(v.sum()) for key, v in engine.ws_sing.items()}
+
+
+def stress_pass_ms(eng, dpT, drT, fk, bv, device) -> dict:
+    """The weak-symmetry pass alone (``weak_symmetry_bucket_bl``) of every
+    bucket, host clock around a synchronised call, best of 3:
+    {bucket: [patches, ms]}."""
+    from dolfinx_eqlb_tpu_torch.eqlb.semiexplicit import (
+        solve_bucket_semiexplicit,
+    )
+    from dolfinx_eqlb_tpu_torch.eqlb.stress import weak_symmetry_bucket_bl
+
+    dev, refd = eng._device_tables()
+    dprT = torch.cat([dpT, drT[:, None]], dim=1)
+    out = {}
+    for key in sorted(eng.buckets):
+        sol = solve_bucket_semiexplicit(eng, key, dprT, fk, bv, dev[key],
+                                        refd)[:2].contiguous()
+        times = []
+        for _ in range(3):
+            sync(device)
+            t0 = time.perf_counter()
+            weak_symmetry_bucket_bl(eng, key, sol, fk[:2], dev[key], refd)
+            sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[str(key)] = [eng.buckets[key].npatches, min(times)]
+    return out
+
+
+def phase_stress(V, buckets, msh, device) -> dict:
+    """Phase 15: the stress engine at bench.py's ``--stress`` headline: the
+    crossed mesh, RT2, two stress rows of f32 random DG data (bench.py's
+    data with stress=True), chunk ``CHUNK``, ``weak_symmetry=True``.  The
+    same engine without weak symmetry first, for its times; then the
+    stress caches, the stress path's strict and pipelined times, launches
+    (K1's by route), ``torch.linalg.solve`` calls per call, peak memory,
+    the result against the plain route (solver "torch", plain combine) and
+    K1 and K2 against their plain versions on the call's own operands.
+    Then f64 on ``unit_square(64)`` with compatible data (the exact
+    polynomial stress, all-Dirichlet; the linear stress with mixed traction
+    rows): card against the CPU, the regularisation masks compared."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
+    from dolfinx_eqlb_tpu_torch.mesh import unit_square
+    from dolfinx_eqlb_tpu_torch.ops.lane_select import combine_gather_plain
+
+    t0 = time.perf_counter()
+    eng = EqlbEngine(V, buckets, dtype=torch.float32, device=device,
+                     max_patches_per_bucket=CHUNK)
+    res = {"engine_tables_s": time.perf_counter() - t0}
+    dp, dr, fk, bv = make_data(msh, 2, 2, seed=0, np_dtype=np.float32)
+    dpT, drT = eng.put_transposed(dp, dr)
+    fk = torch.as_tensor(fk, device=device)
+    bv = torch.as_tensor(bv, device=device)
+    eng._device_tables()
+    sync(device)
+
+    def flux_call():
+        return eng.equilibrate(dpT, drT, fk, bv, transposed_inputs=True)
+
+    def call():
+        return eng.equilibrate(dpT, drT, fk, bv, weak_symmetry=True,
+                               transposed_inputs=True)
+
+    reset_launches()
+    _, flux = drive(flux_call, device)
+    flux["launches"] = read_launches()
+    res["flux_only"] = flux
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    eng.pivoted_solves = 0
+    t0 = time.perf_counter()
+    eng.ensure_stress_caches()
+    sync(device)
+    res["stress_cache_s"] = time.perf_counter() - t0
+    res["stress_cache_pivoted_solves"] = eng.pivoted_solves
+    eng.pivoted_solves = 0
+    reset_launches()
+    x, timing = drive(call, device)
+    res["launches"] = read_launches()
+    res["k1_launches_by_route"] = dict(
+        kernel_wrappers()["K1"].launches_by_route)
+    res.update(timing)
+    ncalls = 1 + len(timing["strict_ms"]) + 8 * len(timing["pipelined_ms"])
+    res["calls"] = ncalls
+    res["pivoted_solves_per_call"] = eng.pivoted_solves / ncalls
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    res["k1_shapes"] = solve_shapes(eng)
+    res["sing_patches"] = sing_counts(eng)
+    res["shape_ok"] = tuple(x.shape) == (2, eng.V.ndofs)
+    res["finite"] = bool(torch.isfinite(x).all())
+    res["ws_per_bucket_ms"] = stress_pass_ms(eng, dpT, drT, fk, bv, device)
+    ref = EqlbEngine.from_host_tables(
+        eng.V, eng.buckets, eng.tables, eng.se_static, eng.ref,
+        dtype=eng.dtype, device=device)
+    ref.solver = "torch"
+    ref.ensure_stress_caches()
+    x_ref = combine_gather_plain(
+        ref._bucket_solutions(dpT, drT, fk, bv, weak_symmetry=True),
+        ref._combine_src(), ref._nfk)
+    del ref
+    scale = float(x_ref.abs().max())
+    res["max_abs_err_vs_plain"] = float((x - x_ref).abs().max())
+    res["err_limit"] = 1e-3 * scale
+    del x, x_ref
+    torch.cuda.empty_cache()
+    res["kernel_checks"] = engine_kernel_checks(eng, call)
+    del eng
+    torch.cuda.empty_cache()
+
+    # f64, compatible data: card against the CPU
+    par = {"n": 64, "cases": {}}
+    for name, data, traction in (("poly_dirichlet", poly_stress(2), False),
+                                 ("linear_traction", LINEAR_STRESS, True)):
+        out = {dv: stress_flow(unit_square(64), 2, dv, data, traction)
+               for dv in (device, "cpu")}
+        card, cpu = out[device], out["cpu"]
+        err = max(float((a.x.cpu() - b.x).abs().max())
+                  for a, b in zip(card["eq"].list_flux, cpu["eq"].list_flux))
+        scale = max(float(b.x.abs().max()) for b in cpu["eq"].list_flux)
+        limit = 1e-11 * max(1.0, scale)
+        sing_same = all(
+            torch.equal(card["eq"].engine.ws_sing[key].cpu(), val)
+            for key, val in cpu["eq"].engine.ws_sing.items())
+        c = dict(max_abs_err=err, limit=limit, checks=card["checks"],
+                 sing_patches=sing_counts(card["eq"].engine),
+                 sing_identical=sing_same)
+        c["ok"] = (err <= limit and sing_same
+                   and all(card["checks"].values())
+                   and card["checks"] == cpu["checks"])
+        par["cases"][name] = c
+    res["f64_parity"] = par
+    return res
+
+
+def report_stress(r: dict, nph: int, failures: list) -> None:
+    f = r["flux_only"]
+    log(f"[15/{nph}] stress engine (bench.py --stress) RT2 f32 2 rows: "
+        f"without weak symmetry strict {f['strict_ms_median']:.3f} ms, "
+        f"pipelined {f['pipelined_ms_min']:.3f} ms; stress caches "
+        f"{r['stress_cache_s']:.3f} s ({r['stress_cache_pivoted_solves']} "
+        f"torch.linalg.solve calls); with weak symmetry first call "
+        f"{r['first_call_s']:.3f} s, strict {r['strict_ms_median']:.3f} ms "
+        f"median, pipelined {r['pipelined_ms_min']:.3f} ms; launches "
+        f"{r['launches']} over {r['calls']} calls, K1 by route "
+        f"{r['k1_launches_by_route']}; torch.linalg.solve "
+        f"{r['pivoted_solves_per_call']:g} per call; the weak-symmetry "
+        f"pass alone {sum(v[1] for v in r['ws_per_bucket_ms'].values()):.3f}"
+        f" ms; regularised patches "
+        f"{r['sing_patches']}; peak {r['peak_mem_gib']:.2f} GiB; max|x - "
+        f"plain| {r['max_abs_err_vs_plain']:.3e} (limit "
+        f"{r['err_limit']:.3e})")
+    kc = r["kernel_checks"]
+    log("    kernels vs plain on the call's operands: K1 "
+        + "; ".join(f"{c['dtype']} D={c['D']} R={c['R']} X={c['X']} "
+                    f"max_rel_err {c['max_rel_err']:.3e}" for c in kc["K1"])
+        + f"; K2 ndofs={kc['K2']['ndofs']} bitwise {kc['K2']['bitwise']}")
+    log("    detail: " + json.dumps(
+        {key: val for key, val in r.items() if key != "kernel_checks"}))
+    if r["launches"]["K1"] <= 0 or r["launches"]["K2"] <= 0:
+        failures.append(f"stress path skipped a kernel: {r['launches']}")
+    check_k1_routes("stress path", r["k1_launches_by_route"],
+                    r["k1_shapes"], torch.float32, failures)
+    if not (r["shape_ok"] and r["finite"]):
+        failures.append("stress path output has a wrong shape or "
+                        "non-finite values")
+    if not r["max_abs_err_vs_plain"] <= r["err_limit"]:
+        failures.append("stress path disagrees with the plain route")
+    if not all(c["ok"] for c in kc["K1"]) or not kc["K2"]["ok"]:
+        failures.append("stress path: a kernel disagrees with its plain "
+                        "version")
+    for name, c in r["f64_parity"]["cases"].items():
+        log(f"[15/{nph}] stress f64 unit_square(64) {name}, card vs CPU: "
+            f"max_abs_err {c['max_abs_err']:.3e} (limit {c['limit']:.3e}); "
+            f"checks {c['checks']}; regularised patches "
+            f"{c['sing_patches']}, masks identical {c['sing_identical']}"
+            f"{'' if c['ok'] else '  FAILED'}")
+        if not c["ok"]:
+            failures.append(f"stress f64 {name}: card and CPU disagree or "
+                            "a check failed")
+
+
+def phase_elasticity(n: int, device) -> dict:
+    """Phase 16: ``demos.elasticity.run``'s flow (u formulation, P2 primal,
+    RT2, weak symmetry, Korn constants, ``estimate_elasticity``) on
+    ``unit_square(n)``, f64: stage seconds, CG iterations against
+    ``maxiter``, the checks, eta and its components, I_eff, launches (K1's
+    by route), peak memory, K1 and K2 against their plain versions on the
+    equilibrator's own operands.  Then the rows of the four committed
+    ``artifacts/ConvStudyElasticity-*.csv`` on the card (n = 4 ... 32)."""
+    import csv
+
+    from dolfinx_eqlb_tpu_torch.demos import elasticity as demo
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    info = {}
+    res = {"n": n}
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        eta, comps, err = demo.run(n, 2, 2, check=True, formulation="u",
+                                   device=device, verbose=False, info=info)
+        res.update(eta=eta, eta_sig=comps[0], eta_wsym=comps[1],
+                   eta_osc=comps[2], energy_error=err, I_eff=eta / err)
+    except AssertionError:
+        res["failed"] = True
+    res["seconds"] = time.perf_counter() - t0
+    res["launches"] = read_launches()
+    res["k1_launches_by_route"] = dict(
+        kernel_wrappers()["K1"].launches_by_route)
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    res["checks"] = info.get("checks", {})
+    for key in ("stages_s", "iterations", "maxiter", "cells"):
+        res[key] = info.get(key)
+    eq = info.get("eq")
+    if eq is not None:
+        res["k1_shapes"] = solve_shapes(eq.engine)
+        res["sing_patches"] = sing_counts(eq.engine)
+        res["kernel_checks"] = flux_kernel_checks(eq)
+    del info, eq
+    torch.cuda.empty_cache()
+
+    rows = []
+    for form, order, degree in ELASTICITY_CSVS:
+        name = (f"ConvStudyElasticity-{form}_porder-{order}_eorder-"
+                f"{degree}.csv")
+        with open(repo_file("artifacts") / name) as f:
+            want = [{k: float(v) for k, v in row.items()}
+                    for row in csv.DictReader(f)]
+        got = []
+        for w in want:
+            t0 = time.perf_counter()
+            e, c, er = demo.run(int(w["n"]), order, degree, check=False,
+                                formulation=form, device=device,
+                                verbose=False)
+            got.append(dict(n=int(w["n"]), eta=e, eta_sig=c[0],
+                            eta_wsym=c[1], eta_osc=c[2], energy_error=er,
+                            I_eff=e / er, s=time.perf_counter() - t0))
+        keys = ("eta", "eta_sig", "eta_wsym", "eta_osc", "energy_error",
+                "I_eff")
+        rel = max_rel([[g[k] for k in keys] for g in got],
+                      [[w[k] for k in keys] for w in want])
+        # each column against max(|its value|, eta): eta_osc sits at the
+        # primal solve's algebraic residual (rtol 1e-12), far below eta
+        rel_eta = max(abs(g[k] - w[k]) / max(abs(w[k]), w["eta"])
+                      for g, w in zip(got, want) for k in keys)
+        limit = ELASTICITY_CSV_LIMIT[form]
+        rows.append(dict(csv=name, rows=len(got), max_rel_err=rel,
+                         max_err_rel_eta=rel_eta, limit=limit,
+                         ok=rel_eta <= limit,
+                         seconds=sum(g["s"] for g in got)))
+    res["csvs"] = rows
+    return res
+
+
+def report_elasticity(r: dict, nph: int, failures: list) -> None:
+    log(f"[16/{nph}] elasticity user flow unit_square({r['n']}) "
+        f"({r['cells']} cells) P2/RT2 f64 u formulation: {r['seconds']:.1f} "
+        f"s; stages (s) " + ", ".join(
+            f"{key} {val:.3f}" for key, val in (r["stages_s"] or {}).items())
+        + f"; CG {r['iterations']} iterations of maxiter {r['maxiter']}; "
+        f"checks {r['checks']}; eta {r.get('eta', float('nan')):.6e} "
+        f"(sig {r.get('eta_sig', float('nan')):.4e}, wsym "
+        f"{r.get('eta_wsym', float('nan')):.4e}, osc "
+        f"{r.get('eta_osc', float('nan')):.4e}), energy error "
+        f"{r.get('energy_error', float('nan')):.6e}, I_eff "
+        f"{r.get('I_eff', float('nan')):.4f}; launches {r['launches']}, K1 "
+        f"by route {r['k1_launches_by_route']}; peak "
+        f"{r['peak_mem_gib']:.2f} GiB")
+    log("    detail: " + json.dumps(
+        {key: val for key, val in r.items() if key != "kernel_checks"}))
+    if r.get("failed") or not r["checks"] or not all(r["checks"].values()):
+        failures.append(f"elasticity flow: a check failed: {r['checks']}")
+    if r["launches"]["K1"] <= 0 or r["launches"]["K2"] <= 0:
+        failures.append(f"elasticity flow skipped a kernel: "
+                        f"{r['launches']}")
+    if "k1_shapes" in r:
+        check_k1_routes("elasticity flow", r["k1_launches_by_route"],
+                        r["k1_shapes"], torch.float64, failures)
+    kc = r.get("kernel_checks")
+    if kc is not None:
+        log("    kernels vs plain on the equilibrator's operands: K1 "
+            + "; ".join(f"D={c['D']} R={c['R']} X={c['X']} max_rel_err "
+                        f"{c['max_rel_err']:.3e}" for c in kc["K1"])
+            + f" (limit 1e-12); K2 ndofs={kc['K2']['ndofs']} bitwise "
+            f"{kc['K2']['bitwise']}")
+        if not all(c["ok"] for c in kc["K1"]) or not kc["K2"]["ok"]:
+            failures.append("elasticity flow: a kernel disagrees with its "
+                            "plain version")
+    for c in r["csvs"]:
+        log(f"[16/{nph}] {c['csv']} on the card: {c['rows']} rows, max "
+            f"err against max(|value|, eta) {c['max_err_rel_eta']:.3e} "
+            f"(limit {c['limit']:g}), max rel err {c['max_rel_err']:.3e}, "
+            f"{c['seconds']:.1f} s{'' if c['ok'] else '  FAILED'}")
+        if not c["ok"]:
+            failures.append(f"{c['csv']} not reproduced")
+
+
+def k3_operand_checks(solves) -> list:
+    """K3 against its plain version on captured batch-major operands, one
+    row per operand set: within 1e-12 of the plain solve relative to its
+    largest entry (f64)."""
+    from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
+        batched_kkt_solve, batched_kkt_solve_plain, k3_plan,
+    )
+
+    rows = []
+    for A, b in solves:
+        x = batched_kkt_solve(A, b)
+        xp = batched_kkt_solve_plain(A, b)
+        err = float((x - xp).abs().max())
+        rel = err / float(xp.abs().max())
+        D, R = A.shape[-1], b.shape[-1]
+        rows.append(dict(D=D, R=R, X=int(np.prod(A.shape[:-2])),
+                         route=k3_plan(D, R, A.dtype), max_abs_err=err,
+                         max_rel_err=rel,
+                         ok=bool(torch.isfinite(x).all()) and rel <= 1e-12))
+    return rows
+
+
+def capture_dense_solves(eng, call):
+    """Run ``call()`` with the engine's batch-major K3 solves recorded:
+    returns (call's result, [(A, b), ...] of the systems K3 took)."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import k3_takes
+
+    solves = []
+    solve = eng._dense_solve
+
+    def record(A, b):
+        if eng.solver == "kernel" and k3_takes(A.shape[-1]):
+            solves.append((A, b))
+        return solve(A, b)
+
+    eng._dense_solve = record
+    try:
+        out = call()
+    finally:
+        del eng._dense_solve
+    return out, solves
+
+
+def phase_stress_kkt(device, n: int = 64) -> dict:
+    """Phase 17: the elasticity flow of phase 16 on ``unit_square(n)`` in
+    the KKT mode (the flux KKT systems through K3, the full stress KKT
+    systems through ``torch.linalg.solve``) against the semi-explicit mode,
+    both rows within 1e-9; K3's launches by route, and K3 against its
+    plain version on the call's own operands.  Then
+    ``stress.weak_symmetry_bucket_reduced`` on the largest boundary bucket
+    of the unstructured ``unit_square_unstructured(32)`` (exact polynomial
+    stress, RT2): its K3 solve against the plain version, its correction
+    against the cached semi-explicit one (``weak_symmetry_bucket_bl``) of
+    the same bucket within 1e-9.  On an interior bucket the reduced
+    system's constraint block is singular by one (the constant mode, which
+    the multiplier row after it removes), so the pivot-free order meets a
+    vanishing pivot on any mesh: the largest interior bucket is run too,
+    and its patches with a non-finite correction are counted, not held."""
+    from dolfinx_eqlb_tpu_torch.demos import elasticity as demo
+    from dolfinx_eqlb_tpu_torch.eqlb.semiexplicit import (
+        solve_bucket_semiexplicit,
+    )
+    from dolfinx_eqlb_tpu_torch.eqlb.stress import (
+        weak_symmetry_bucket_bl, weak_symmetry_bucket_reduced,
+    )
+    from dolfinx_eqlb_tpu_torch.mesh import unit_square_unstructured
+
+    res = {"n": n}
+    info_se, info_kkt = {}, {}
+    demo.run(n, 2, 2, check=True, device=device, verbose=False,
+             info=info_se)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    demo.run(n, 2, 2, check=True, device=device, verbose=False,
+             info=info_kkt, mode="kkt")
+    res["seconds"] = time.perf_counter() - t0
+    res["launches"] = read_launches()
+    res["k3_launches_by_route"] = dict(
+        kernel_wrappers()["K3"].launches_by_route)
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    res["stages_s"] = info_kkt["stages_s"]
+    res["checks"] = info_kkt["checks"]
+    se, kkt = info_se["eq"], info_kkt["eq"]
+    res["max_abs_err_vs_se"] = max(
+        float((a.x - b.x).abs().max())
+        for a, b in zip(kkt.list_flux, se.list_flux))
+    res["limit"] = 1e-9 * max(1.0, max(float(b.x.abs().max())
+                                        for b in se.list_flux))
+    _, solves = capture_dense_solves(kkt.engine, kkt.equilibrate_fluxes)
+    res["k3_checks"] = k3_operand_checks(solves)
+    del info_se, info_kkt, se, kkt, solves
+    torch.cuda.empty_cache()
+
+    msh = unit_square_unstructured(32, seed=1)
+    flow = stress_flow(msh, 2, device, poly_stress(2))
+    eq = flow["eq"]
+    eng = eq.engine
+    dev, refd = eng._device_tables()
+    fk = torch.as_tensor(eq.boundary_data.facet_kind, device=device)
+    bv = torch.as_tensor(eq.boundary_data.bvals, device=device)
+    dprT = torch.cat([eq._d_proj.movedim(1, -1),
+                      eq._d_rhs.movedim(1, -1)[:, None]], dim=1)
+    res["reduced"] = {}
+    for name, boundary in (("boundary", True), ("interior", False)):
+        key = max((k for k, b in eng.buckets.items()
+                   if b.is_boundary == boundary),
+                  key=lambda k: eng.buckets[k].npatches)
+        sol_bl = solve_bucket_semiexplicit(eng, key, dprT, fk, bv, dev[key],
+                                           refd)[:2].contiguous()
+        want = weak_symmetry_bucket_bl(eng, key, sol_bl, fk[:2], dev[key],
+                                       refd).movedim(-1, 1)
+        reset_launches()
+        got, red_solves = capture_dense_solves(
+            eng, lambda: weak_symmetry_bucket_reduced(
+                eng, key, sol_bl.movedim(-1, 1), fk[:2], eq._d_proj[:2]))
+        launches = read_launches()
+        finite = torch.isfinite(got).all(dim=-1).all(dim=0)  # (P,)
+        red = {"bucket": str(key), "patches": eng.buckets[key].npatches,
+               "cells": msh.num_cells, "launches": launches,
+               "k3_launches_by_route": dict(
+                   kernel_wrappers()["K3"].launches_by_route),
+               "nonfinite_patches": int((~finite).sum()),
+               "max_abs_err_vs_bl": float(
+                   (got - want)[:, finite].abs().max()),
+               "limit": 1e-9 * max(1.0, float(want.abs().max()))}
+        if boundary:
+            red["k3_checks"] = k3_operand_checks(red_solves)
+        res["reduced"][name] = red
+    return res
+
+
+def report_stress_kkt(r: dict, nph: int, failures: list) -> None:
+    log(f"[17/{nph}] KKT-mode stress, elasticity flow unit_square({r['n']}) "
+        f"P2/RT2 f64: {r['seconds']:.1f} s; stages (s) " + ", ".join(
+            f"{key} {val:.3f}" for key, val in r["stages_s"].items())
+        + f"; checks {r['checks']}; max|KKT - SE| "
+        f"{r['max_abs_err_vs_se']:.3e} (limit {r['limit']:.3e}); launches "
+        f"{r['launches']}, K3 by route {r['k3_launches_by_route']}; K3 vs "
+        "plain: " + "; ".join(
+            f"D={c['D']} X={c['X']} {c['route']} max_rel_err "
+            f"{c['max_rel_err']:.3e}" for c in r["k3_checks"])
+        + f" (limit 1e-12); peak {r['peak_mem_gib']:.2f} GiB")
+    for name, red in r["reduced"].items():
+        log(f"[17/{nph}] weak_symmetry_bucket_reduced, {name} bucket "
+            f"{red['bucket']} ({red['patches']} patches) of "
+            f"unit_square_unstructured(32) ({red['cells']} cells): launches "
+            f"{red['launches']}, K3 by route {red['k3_launches_by_route']}; "
+            + ("K3 vs plain " + "; ".join(
+                f"D={c['D']} X={c['X']} {c['route']} max_rel_err "
+                f"{c['max_rel_err']:.3e}" for c in red["k3_checks"])
+               + " (limit 1e-12); " if "k3_checks" in red else "")
+            + f"patches with a non-finite correction (a vanishing pivot) "
+            f"{red['nonfinite_patches']}; max|reduced - cached| over the "
+            f"finite ones {red['max_abs_err_vs_bl']:.3e} (limit "
+            f"{red['limit']:.3e})")
+    log("    detail: " + json.dumps(r))
+    if not all(r["checks"].values()):
+        failures.append(f"KKT-mode stress: a check failed: {r['checks']}")
+    if not r["max_abs_err_vs_se"] <= r["limit"]:
+        failures.append("KKT-mode stress disagrees with the semi-explicit "
+                        "mode")
+    if r["launches"]["K3"] <= 0 or r["launches"]["K2"] <= 0:
+        failures.append(f"KKT-mode stress skipped a kernel: {r['launches']}")
+    if not r["k3_checks"] or not all(c["ok"] for c in r["k3_checks"]):
+        failures.append("KKT-mode stress: K3 disagrees with its plain "
+                        "version")
+    red = r["reduced"]["boundary"]
+    if red["launches"]["K3"] <= 0 or not red["k3_checks"] \
+            or not all(c["ok"] for c in red["k3_checks"]):
+        failures.append("weak_symmetry_bucket_reduced: K3 not launched or "
+                        "off its plain version")
+    if red["nonfinite_patches"] or not red["max_abs_err_vs_bl"] <= red["limit"]:
+        failures.append("weak_symmetry_bucket_reduced disagrees with the "
+                        "cached correction on the boundary bucket")
+
+
+def cook_steps(device, **kw) -> tuple[list, list]:
+    """``demos.cook_adaptive.run`` with one line per step: cells, CG
+    iterations against maxiter, eta and its components, L(u_h), stage
+    seconds, the number of patch groups and the weak-symmetry check.
+    Returns (rows, steps)."""
+    from dolfinx_eqlb_tpu_torch.demos import cook_adaptive
+    from dolfinx_eqlb_tpu_torch.eqlb import check_weak_symmetry_condition
+    from dolfinx_eqlb_tpu_torch.eqlb.grouping import build_groups
+
+    steps = []
+
+    def hook(step):
+        eq = step["eq"]
+        groups, _ = build_groups(eq.engine, eq.boundary_data.facet_kind[:2])
+        steps.append(dict(
+            it=step["it"], cells=step["mesh"].num_cells,
+            regularised=sum(int(v.sum())
+                            for v in eq.engine.ws_sing.values()),
+            cg=step["solver"].last_iterations,
+            maxiter=step["solver"].last_maxiter, eta=step["eta"],
+            comps=step["comps"], L_h=step["L_h"],
+            groups=len(groups) if eq.degree_flux == 2 else 0,
+            weak_symmetry=check_weak_symmetry_condition(
+                eq.list_flux, step["sigma_proj"]),
+            stages_s=dict(step["stages_s"]),
+            step_s=sum(step["stages_s"].values())))
+
+    rows = cook_adaptive.run(device=device, step_hook=hook, verbose=False,
+                             **kw)
+    return rows, steps
+
+
+def phase_cook(device, max_cells: int = 50_000) -> dict:
+    """Phase 18: ``demos.cook_adaptive`` (Cook's membrane, P2 primal, RT3,
+    theta 0.5, from ``cook_membrane(2, 2)``): the demo's configuration
+    (6 iterations and the overkill reference), its first 10 iterations
+    held against the port on the CPU (cells identical, eta within 1e-9
+    relative or non-finite on both); the same loop run on until the mesh
+    has ``max_cells`` cells; then at RT2 (2 iterations), where the
+    deficient corner patches are grouped, with the groups and the
+    weak-symmetry check after ``grouped_weak_symmetry``."""
+    res = {}
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    rows, steps = cook_steps(device, max_iter=6)
+    res["demo"] = {"rows": rows, "steps": steps,
+                   "seconds": time.perf_counter() - t0,
+                   "launches": read_launches(),
+                   "k1_launches_by_route": dict(
+                       kernel_wrappers()["K1"].launches_by_route)}
+    _, card = cook_steps(device, max_iter=10, overkill=False)
+    _, cpu = cook_steps("cpu", max_iter=10, overkill=False)
+    res["cpu_parity"] = dict(
+        steps=len(cpu),
+        cells_identical=[s["cells"] for s in card] == [s["cells"]
+                                                       for s in cpu],
+        eta_max_rel=max_rel([s["eta"] for s in card if
+                             np.isfinite(s["eta"])],
+                            [s["eta"] for s in cpu if np.isfinite(s["eta"])]),
+        nonfinite_same=[np.isfinite(s["eta"]) for s in card]
+        == [np.isfinite(s["eta"]) for s in cpu])
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, long = cook_steps(device, max_iter=400, overkill=False,
+                         max_cells=max_cells)
+    res["long"] = {"steps": long, "seconds": time.perf_counter() - t0,
+                   "launches": read_launches(),
+                   "peak_mem_gib":
+                   torch.cuda.max_memory_allocated(device) / 2**30}
+    reset_launches()
+    _, grouped = cook_steps(device, degree=2, max_iter=2, overkill=False)
+    res["grouped"] = {"steps": grouped, "launches": read_launches()}
+    return res
+
+
+def report_cook(r: dict, nph: int, failures: list) -> None:
+    def line(name, s):
+        c = s["comps"]
+        log(f"    {name} it {s['it']}: cells {s['cells']}, CG {s['cg']} of "
+            f"{s['maxiter']}, eta {s['eta']:.6e} (sig {c[0]:.3e}, wsym "
+            f"{c[1]:.3e}, osc {c[2]:.3e}), L(u_h) {s['L_h']:.10e}, groups "
+            f"{s['groups']}, regularised patches {s['regularised']}, weak "
+            f"symmetry {s['weak_symmetry']}, "
+            f"{s['step_s']:.3f} s (" + ", ".join(
+                f"{k} {v:.3f}" for k, v in s["stages_s"].items()) + ")")
+
+    d = r["demo"]
+    log(f"[18/{nph}] Cook's membrane P2/RT3 theta 0.5, the demo's "
+        f"configuration: {len(d['steps'])} iterations in "
+        f"{d['seconds']:.1f} s; launches {d['launches']}, K1 by route "
+        f"{d['k1_launches_by_route']}")
+    for s in d["steps"]:
+        line("demo", s)
+    for cells, eta, err, ieff, *c in d["rows"]:
+        log(f"    demo: cells {cells}, eta {eta:.6e}, err {err:.6e}, I_eff "
+            f"{ieff:.4f}")
+    p = r["cpu_parity"]
+    p["ok"] = (p["cells_identical"] and p["nonfinite_same"]
+               and p["eta_max_rel"] <= 1e-9)
+    log(f"[18/{nph}] Cook loop card vs CPU, first {p['steps']} iterations: "
+        f"cells identical {p['cells_identical']}, eta max rel err "
+        f"{p['eta_max_rel']:.3e} (limit 1e-9), non-finite eta on the same "
+        f"steps {p['nonfinite_same']}{'' if p['ok'] else '  FAILED'}")
+    lg = r["long"]
+    bad = [s["it"] for s in lg["steps"] if not np.isfinite(s["eta"])]
+    missed = [s["it"] for s in lg["steps"] if not s["weak_symmetry"]]
+    log(f"[18/{nph}] Cook loop to {lg['steps'][-1]['cells']} cells: "
+        f"{len(lg['steps'])} iterations in {lg['seconds']:.1f} s; launches "
+        f"{lg['launches']}; peak {lg['peak_mem_gib']:.2f} GiB; steps with a "
+        f"non-finite eta (a Korn angle of 0) {bad}; steps missing weak "
+        f"symmetry {missed}, all with regularised patches")
+    for s in lg["steps"]:
+        line("long", s)
+    g = r["grouped"]
+    log(f"[18/{nph}] Cook loop at RT2 (patch grouping): launches "
+        f"{g['launches']}")
+    for s in g["steps"]:
+        line("rt2", s)
+    if not p["ok"]:
+        failures.append("Cook loop: card and CPU disagree")
+    for name in ("demo", "long", "grouped"):
+        # a step whose masked stress systems took the rank-1
+        # regularisation (mixed-row traction corners of the refined mesh)
+        # may miss weak symmetry by ~1e-8, as the JAX package does on the
+        # same mesh; every other step must hold it
+        steps = r[name]["steps"]
+        if not all(s["weak_symmetry"] for s in steps
+                   if s["regularised"] == 0):
+            failures.append(f"Cook loop {name}: weak symmetry fails on a "
+                            "step without regularised patches")
+        if r[name]["launches"]["K1"] <= 0 or r[name]["launches"]["K2"] <= 0:
+            failures.append(f"Cook loop {name} skipped a kernel: "
+                            f"{r[name]['launches']}")
+    if not all(np.isfinite(row[1]) for row in d["rows"]):
+        failures.append("Cook loop: the demo's configuration gave a "
+                        "non-finite eta")
+    if not all(s["groups"] > 0 for s in g["steps"]):
+        failures.append("Cook loop at RT2: no patch groups")
+
+
 def kernel_entry(name, source, replaces, launches, row, errs):
     """One entry of the "kernels" line from a phase row."""
     return {"name": name, "route": "cuda", "source": source,
@@ -1674,7 +2412,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     failures = []
-    nph = 14
+    nph = 18
 
     card = card_line()
     log(card)
@@ -1869,6 +2607,29 @@ def main(argv=None) -> int:
     uni = phase_uniform(device)
     marks.append(("14", time.perf_counter()))
     report_uniform(uni, nph, failures)
+    torch.cuda.empty_cache()
+
+    msh = unit_square(args.n)
+    buckets = build_patches(msh)
+    stress = phase_stress(FunctionSpace(msh, "RT", k), buckets, msh, device)
+    del buckets, msh
+    marks.append(("15", time.perf_counter()))
+    report_stress(stress, nph, failures)
+    torch.cuda.empty_cache()
+
+    ela = phase_elasticity(args.n, device)
+    marks.append(("16", time.perf_counter()))
+    report_elasticity(ela, nph, failures)
+    torch.cuda.empty_cache()
+
+    skkt = phase_stress_kkt(device)
+    marks.append(("17", time.perf_counter()))
+    report_stress_kkt(skkt, nph, failures)
+    torch.cuda.empty_cache()
+
+    cook = phase_cook(device)
+    marks.append(("18", time.perf_counter()))
+    report_cook(cook, nph, failures)
 
     log("seconds by phase (host clock, each to the end of its run): "
         + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t) in
@@ -1893,6 +2654,17 @@ def main(argv=None) -> int:
     for name in ("SE", "EV"):
         paths[f"uniform_series_{name.lower()}_f64"] = uni[name]["launches"]
     paths["kellogg_se_f64"] = uni["kellogg"]["launches"]
+    # slice 4: weakly symmetric stress
+    paths["stress_se_f32"] = stress["launches"]
+    paths["elasticity_flow_f64"] = ela["launches"]
+    paths["stress_kkt_f64"] = {
+        kname: skkt["launches"][kname]
+        + sum(red["launches"][kname] for red in skkt["reduced"].values())
+        for kname in kernel_wrappers()}
+    paths["cook_loop"] = {
+        kname: sum(cook[name]["launches"][kname]
+                   for name in ("demo", "long", "grouped"))
+        for kname in kernel_wrappers()}
 
     def total(kname):
         return sum(p[kname] for p in paths.values())
@@ -1906,7 +2678,11 @@ def main(argv=None) -> int:
     k1_row = biggest([r for r in k1 if r["set"] == "main"], "float32")
     flux_checks = ([kc for r in api["cases"].values()
                     for kc in r["kernel_checks"].values()]
-                   + [r["kernel_checks"] for r in lsh.values()])
+                   + [r["kernel_checks"] for r in lsh.values()]
+                   + [stress["kernel_checks"], ela["kernel_checks"]])
+    k3_stress_checks = (skkt["k3_checks"]
+                        + skkt["reduced"]["boundary"]["k3_checks"])
+    k3_stress_errs = [c["max_abs_err"] for c in k3_stress_checks]
     k1_errs = ([r["max_abs_err"] for r in k1]
                + [c["max_abs_err"] for kc in flux_checks for c in kc["K1"]])
     k2_errs = ([r["max_abs_err"] for r in k2]
@@ -1919,7 +2695,7 @@ def main(argv=None) -> int:
                      k2_errs),
         kernel_entry("K3 batched_kkt_solve", K3_SOURCE, K3_REPLACES,
                      total("K3"), biggest(k3, "float64"),
-                     [r["max_abs_err"] for r in k3]),
+                     [r["max_abs_err"] for r in k3] + k3_stress_errs),
         kernel_entry("K4 ds_combine_gather", K4_SOURCE, K4_REPLACES,
                      total("K4"), k4[0], [r["max_abs_err"] for r in k4]),
     ]
@@ -1949,7 +2725,10 @@ def main(argv=None) -> int:
                r["k1_launches_by_route"] for name, r in lsh.items()},
             **{f"uniform_series_{name.lower()}_f64":
                uni[name]["k1_launches_by_route"] for name in ("SE", "EV")},
-            "kellogg_se_f64": uni["kellogg"]["k1_launches_by_route"]},
+            "kellogg_se_f64": uni["kellogg"]["k1_launches_by_route"],
+            "stress_se_f32": stress["k1_launches_by_route"],
+            "elasticity_flow_f64": ela["k1_launches_by_route"],
+            "cook_loop_demo": cook["demo"]["k1_launches_by_route"]},
         lshape_last_step_shapes=[
             {key: c[key] for key in ("D", "R", "X", "route", "ms",
                                      "plain_ms", "library_ms", "bound_ms",
@@ -1961,8 +2740,15 @@ def main(argv=None) -> int:
         k3_route=k3_row["route"], shared_ms=k3_row["shared_ms"],
         shared_max_abs_err=max(r["shared_max_abs_err"] for r in k3),
         launches_by_route={
-            name: kkt[dt]["k3_launches_by_route"]
-            for name, dt in (("kkt_f64", "float64"), ("kkt_f32", "float32"))})
+            **{name: kkt[dt]["k3_launches_by_route"]
+               for name, dt in (("kkt_f64", "float64"),
+                                ("kkt_f32", "float32"))},
+            "stress_kkt_f64": skkt["k3_launches_by_route"],
+            **{f"stress_reduced_{name}_f64": red["k3_launches_by_route"]
+               for name, red in skkt["reduced"].items()}},
+        stress_operands=[{key: c[key] for key in (
+            "D", "R", "X", "route", "max_rel_err")}
+            for c in k3_stress_checks])
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,10 +23,15 @@ Ported so far:
   bisection), and the demos ``demos.reconstruction``,
   ``demos.error_estimation``, ``demos.lshape_adaptive``,
   ``demos.discont_coeff`` and ``demos.local_projection``, each run as
-  ``python -m dolfinx_eqlb_tpu_torch.demos.<name>``.
+  ``python -m dolfinx_eqlb_tpu_torch.demos.<name>``;
+* weakly symmetric stress equilibration: ``FluxEqlbSE(equilibrate_stress=
+  True, estimate_korn_constant=True)`` (``eqlb.stress``, ``eqlb.grouping``,
+  ``eqlb.korn``), ``models.elasticity`` (``ElasticitySolver``,
+  ``ElasticitySolverUP`` on ``fem.krylov.minres``),
+  ``estimation.estimate_elasticity``, ``mesh.cook_membrane`` and the demos
+  ``demos.elasticity`` and ``demos.cook_adaptive``.
 
-Not yet: stress equilibration and ``estimate_elasticity``, multigrid and
-the Biot and elasticity models, sharding, the I/O utilities.
+Not yet: multigrid and the Biot model, sharding, the I/O utilities.
 
 Entry points run on the CUDA card by default and raise without one; pass
 ``device="cpu"`` for the CPU.  Nothing here imports jax.

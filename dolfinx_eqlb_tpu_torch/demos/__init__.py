@@ -9,5 +9,8 @@ cpu`` for the plain versions on the CPU).  They write CSV, not XDMF.
 * ``lshape_adaptive``   — the adaptive L-shape loop (Doerfler marking,
   longest-edge bisection);
 * ``discont_coeff``     — the adaptive Kellogg loop (discontinuous kappa);
-* ``local_projection``  — cell-local L2 projection into DG2.
+* ``local_projection``  — cell-local L2 projection into DG2;
+* ``elasticity``        — linear elasticity (u or u-p), weakly symmetric
+  stress equilibration, Korn constants, the guaranteed bound;
+* ``cook_adaptive``     — the adaptive Cook's-membrane loop.
 """

@@ -15,14 +15,19 @@ problem).  ``EqlbEngine.equilibrate`` runs one of two modes:
   3. per call, per bucket (``semiexplicit.solve_bucket_semiexplicit``): load
      moments, the explicit step and the reduced solve — a cached-inverse
      product on interior buckets, a masked K1 solve on boundary buckets;
+     with ``weak_symmetry=True``, then the weak-symmetry correction of the
+     two stress rows (``stress.weak_symmetry_bucket_bl``, from the stress
+     caches ``ensure_stress_caches`` builds once, solved with pivoting);
   4. the global combine through K2 (``ops.lane_select.combine_gather``) or,
      with ``combine="ds"``, the double-single K4 (``ds_combine_gather``).
 
 * ``mode="kkt"``, the reference's full saddle-point formulation, kept to
   cross-check the fast path: per bucket, ``_assemble_bucket`` builds one
   dense KKT system per patch from batch-major tables, ``_dense_solve``
-  solves them through K3 (``ops.patch_solve.batched_kkt_solve``), and the
-  flux part of the solutions goes through the same combine as above.
+  solves them through K3 (``ops.patch_solve.batched_kkt_solve``), the
+  weak-symmetry correction, if asked for, is the full stress KKT system
+  (``stress._weak_symmetry_bucket_kkt``, pivoted), and the flux part of
+  the solutions goes through the same combine as above.
 
 ``solver="kernel_mixed"`` on an f64 engine factors in f32 on K1 and refines
 in f64 (``_dense_solve_bl``), the reference's ``"pallas_mixed"``.
@@ -58,6 +63,10 @@ from .patches import PatchBucket, bucket_dof_tables
 from .semiexplicit import (
     boundary_ess_bl, combo_tensors, mass_matrices_bl, reduced_basis,
     reduced_system_bl, se_host_tables, se_static, solve_bucket_semiexplicit,
+)
+from .stress import (
+    _weak_symmetry_bucket_kkt, bsym_combo_tensors, build_stress_cache,
+    weak_symmetry_bucket_bl,
 )
 
 __all__ = ["EqlbEngine", "k3_takes", "reference_tensors"]
@@ -252,6 +261,13 @@ class EqlbEngine:
         self._kdev = None
         self._krefd = None
         self._src_dev = None
+        # pivoted (torch.linalg.solve) batch-last solves so far: the stress
+        # caches' and the boundary buckets' weak-symmetry systems
+        self.pivoted_solves = 0
+        # per boundary bucket, the mask of patches whose masked stress
+        # system took the rank-1 regularisation in the last weak-symmetry
+        # call (``stress.weak_symmetry_bucket_bl``)
+        self.ws_sing = {}
 
     def _build_combine_table(self):
         """Gather-based global accumulation: every global dof has at most 3
@@ -319,6 +335,7 @@ class EqlbEngine:
 
         refd = {name: f(arr) for name, arr in combo_tensors(k).items()}
         refd["Wend"] = f(self.ref["Wend"])
+        refd["BsymC"] = f(bsym_combo_tensors(k))
         dev = {}
         with _full_f32_matmul():
             for key in sorted(self.tables.keys()):
@@ -378,8 +395,8 @@ class EqlbEngine:
             return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int64,
                                    device=devc)
 
-        krefd = {name: f(self.ref[name])
-                 for name in ("Mhat", "Dhat", "Rhat", "T3", "cpen", "Wend")}
+        krefd = {name: f(self.ref[name]) for name in (
+            "Mhat", "Dhat", "Rhat", "Rlam", "T3", "cpen", "Wend")}
         krefd["hat_grads"] = f(_HAT_GRADS)
         kdev = {}
         for key in sorted(self.tables.keys()):
@@ -406,6 +423,7 @@ class EqlbEngine:
                 "signs": f(t["signs"]),
                 "cells": i64(t.get("cells", b.cells)),
                 "lnode": i64(t.get("lnode", b.lnode)),
+                "lv_hats": i64(t["lv_hats"]),
                 "asm_idx": i64(np.stack(asm)),
                 "rhs_idx": i64(np.stack(rhs)),
             }
@@ -416,6 +434,19 @@ class EqlbEngine:
             kdev[key] = d
         self._kdev, self._krefd = kdev, krefd
         return kdev, krefd
+
+    def ensure_stress_caches(self):
+        """Build the geometry-only weak-symmetry caches once per engine
+        (``stress.build_stress_cache``: the coupling tensors of every
+        bucket, the constraint columns of the stress systems' inverses on
+        interior buckets, the stress systems on boundary buckets).  Lazy:
+        only stress workloads pay for them."""
+        dev, refd = self._device_tables()
+        if any("Bsym_bl" in d for d in dev.values()):
+            return
+        with _full_f32_matmul():
+            for key in sorted(self.tables.keys()):
+                dev[key].update(build_stress_cache(self, key, dev[key], refd))
 
     def _combine_src(self) -> torch.Tensor:
         """The combine table ``src`` on the device (uploaded once)."""
@@ -452,7 +483,8 @@ class EqlbEngine:
                                device=self.device)
 
     def equilibrate(self, sigma_proj_dofs, rhs_dofs, facet_kind, bvals,
-                    transposed_inputs=False):
+                    weak_symmetry=False, transposed_inputs=False,
+                    ws_skip_nodes=None):
         """Solve all patch problems; returns global RT dof vectors
         (n_rhs, ndofs_flux) on the engine's device.
 
@@ -467,8 +499,16 @@ class EqlbEngine:
                                                (primal Dirichlet), 2 flux-
                                                essential (Neumann data)
           bvals           (n_rhs, nf, k):      facet dof values of the flux BC
+          weak_symmetry:  treat rows 0, 1 as stress rows and apply the
+                          patch-wise weak-symmetry correction before the
+                          combine (the reference's FluxEqlbSE stress path)
           transposed_inputs: the first two come from ``put_transposed``
                              (semi-explicit mode only)
+          ws_skip_nodes:  vertices whose patches get no per-patch
+                          weak-symmetry correction, because
+                          ``eqlb.grouping`` corrects them jointly
+                          (semi-explicit mode; the KKT mode, like the
+                          reference's, corrects every patch)
         """
         self._check_options()
         if transposed_inputs and self.mode == "kkt":
@@ -477,11 +517,20 @@ class EqlbEngine:
                 "mode reads the batch-major data")
         fk = self._input(facet_kind)
         bv = self._input(bvals, self.dtype)
+        if weak_symmetry and fk.shape[0] < 2:
+            raise ValueError("weak symmetry needs two stress rows")
+        ws_skip = None
+        if (weak_symmetry and ws_skip_nodes is not None
+                and len(ws_skip_nodes)):
+            ws_skip = {key: torch.as_tensor(np.isin(b.nodes, ws_skip_nodes),
+                                            device=self.device)
+                       for key, b in self.buckets.items()}
         with _full_f32_matmul():
             if self.mode == "kkt":
                 dp = self._input(sigma_proj_dofs, self.dtype)
                 dr = self._input(rhs_dofs, self.dtype)
-                flat = self._bucket_solutions_kkt(dp, dr, fk, bv)
+                flat = self._bucket_solutions_kkt(dp, dr, fk, bv,
+                                                  weak_symmetry)
             else:
                 if transposed_inputs:
                     dpT, drT = sigma_proj_dofs, rhs_dofs
@@ -492,7 +541,10 @@ class EqlbEngine:
                         1, -1).contiguous()
                 else:
                     dpT, drT = self.put_transposed(sigma_proj_dofs, rhs_dofs)
-                flat = self._bucket_solutions(dpT, drT, fk, bv)
+                if weak_symmetry:
+                    self.ensure_stress_caches()
+                flat = self._bucket_solutions(dpT, drT, fk, bv,
+                                              weak_symmetry, ws_skip)
             return self._combine_flat(flat)
 
     def _check_options(self):
@@ -505,7 +557,8 @@ class EqlbEngine:
             raise ValueError("combine='ds' (double-single) needs an f64 "
                              f"engine, this one is {self.dtype}")
 
-    def _bucket_solutions(self, dpT, drT, facet_kind, bvals):
+    def _bucket_solutions(self, dpT, drT, facet_kind, bvals,
+                          weak_symmetry=False, ws_skip=None):
         """Stage 3: every bucket's patch solutions, concatenated flux-major
         into flat (n_rhs, total + 1) with the zero pad slot last.
         dpT (n_rhs, 2, ndg, nc), drT (n_rhs, ndg, nc)."""
@@ -513,14 +566,25 @@ class EqlbEngine:
         n_rhs = dpT.shape[0]
         dprT = torch.cat([dpT, drT[:, None]], dim=1)  # (n_rhs, 3, ndg, nc)
         flats = []
+        if weak_symmetry:
+            self.ws_sing = {}
         for key in sorted(self.buckets.keys()):
             sol_bl = solve_bucket_semiexplicit(
                 self, key, dprT, facet_kind, bvals, dev[key], refd)
+            if weak_symmetry:
+                record = {}
+                sol_bl[:2] += weak_symmetry_bucket_bl(
+                    self, key, sol_bl[:2], facet_kind[:2], dev[key], refd,
+                    skip=None if ws_skip is None else ws_skip[key],
+                    record=record)
+                if "sing" in record:
+                    self.ws_sing[key] = record["sing"]
             flats.append(sol_bl.reshape(n_rhs, -1))
         flats.append(dprT.new_zeros((n_rhs, 1)))
         return torch.cat(flats, dim=1)
 
-    def _bucket_solutions_kkt(self, d_proj, d_rhs, facet_kind, bvals):
+    def _bucket_solutions_kkt(self, d_proj, d_rhs, facet_kind, bvals,
+                              weak_symmetry=False):
         """KKT mode's stage 3: the flux part of every bucket's KKT
         solutions in the semi-explicit path's flat layout (position
         off + f * P + p, zero pad slot last), so the same combine serves
@@ -534,6 +598,10 @@ class EqlbEngine:
             Ar, br, nflux = self._assemble_bucket(
                 key, d_proj, d_rhs, facet_kind, bvals, kdev[key], krefd)
             sol = self._dense_solve(Ar, br[..., None])[..., :nflux, 0]
+            if weak_symmetry:
+                sol[:2] += _weak_symmetry_bucket_kkt(
+                    self, key, sol[:2], facet_kind[:2], d_proj[:2],
+                    kdev[key], krefd)
             flats.append(sol.transpose(1, 2).reshape(n_rhs, -1))
             del Ar, br, sol
         flats.append(d_proj.new_zeros((n_rhs, 1)))
@@ -566,6 +634,17 @@ class EqlbEngine:
                 y = y + batched_kkt_solve_bl(A32, r.float()).double()
             return y
         return batched_kkt_solve_bl(A, b)
+
+    def _dense_solve_pivoted_bl(self, A, b):
+        """Batch-last PIVOTED solve: A (D, D, X), b (D, R, X) -> (D, R, X),
+        ``torch.linalg.solve`` on the batch-major view.  For the indefinite
+        weak-symmetry systems: symmetric patches (the 8-cell stars of
+        crossed meshes) put an exactly vanishing pivot in the pivot-free
+        order although the matrix is well conditioned (a 3e-19 pivot at
+        cond 5e5 in the reference), so neither K1 nor K3 takes them."""
+        self.pivoted_solves += 1
+        x = torch.linalg.solve(A.permute(2, 0, 1), b.permute(2, 0, 1))
+        return x.permute(1, 2, 0)
 
     def _dense_solve(self, A, b):
         """Batch-major solve of the KKT systems: A (..., P, D, D),

@@ -13,13 +13,16 @@ Both strategies produce the unique patch-wise minimiser (see
     flux = corrector + projected flux (reference ``FluxEqlbSE.py:176-186``)
 
 The engine runs on the device of the projected Functions (or ``device``)
-in f64, and its inputs stay there.  Flux equilibration only: stress
-equilibration (weak symmetry, patch grouping, Korn constants) is not
-ported yet.
+in f64, and its inputs stay there.  ``FluxEqlbSE(equilibrate_stress=True)``
+equilibrates the first two fluxes as the rows of a weakly symmetric stress
+(``eqlb.stress``; deficient pure-traction corner patches at degree 2 are
+grouped, ``eqlb.grouping``), and ``estimate_korn_constant=True`` adds the
+cell Korn constants (``eqlb.korn``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..fem.spaces import Function, mesh_space, space_tables
@@ -29,10 +32,6 @@ from .engine import EqlbEngine
 from .patches import build_patches
 
 __all__ = ["FluxEquilibrator", "FluxEqlbEV", "FluxEqlbSE"]
-
-_NO_STRESS = ("stress equilibration (weak symmetry, patch grouping, Korn "
-              "constants) is not ported yet; see ROADMAP.md, queue 1 item 4")
-
 
 def _mesh_patches(mesh):
     """The mesh's vertex patches, built once per mesh."""
@@ -113,7 +112,7 @@ class FluxEquilibrator:
             for i in range(self.n_fluxes)
         ]
 
-    def _solve(self):
+    def _solve(self, weak_symmetry=False, ws_skip_nodes=None):
         if self.boundary_data is None:
             # no BCs set: all boundary facets flux-free
             self.boundary_data = BoundaryData(
@@ -121,7 +120,8 @@ class FluxEquilibrator:
             )
         bd = self.boundary_data
         return self.engine.equilibrate(
-            self._d_proj, self._d_rhs, bd.facet_kind, bd.bvals
+            self._d_proj, self._d_rhs, bd.facet_kind, bd.bvals,
+            weak_symmetry=weak_symmetry, ws_skip_nodes=ws_skip_nodes,
         )  # (n_rhs, ndofs_rt)
 
     def get_reconstructed_fluxes(self, subproblem: int):
@@ -150,8 +150,9 @@ class FluxEqlbSE(FluxEquilibrator):
     ``FluxEqlbSE.py``.  Result: the corrector in discontinuous RT, so the
     reconstructed flux is ``corrector + projected flux``.
 
-    ``equilibrate_stress`` and ``estimate_korn_constant`` raise
-    NotImplementedError: only flux equilibration is ported."""
+    ``equilibrate_stress``: fluxes 0 and 1 are the rows of a stress, made
+    weakly symmetric (flux degree >= 2).  ``estimate_korn_constant``: also
+    estimate the cell Korn constants (``get_korn_constants``)."""
 
     def __init__(
         self,
@@ -164,14 +165,14 @@ class FluxEqlbSE(FluxEquilibrator):
         pad_quantize: float | None = None,
         device=None,
     ):
-        if equilibrate_stress or estimate_korn_constant:
-            raise NotImplementedError(_NO_STRESS)
         super().__init__(degree_flux, msh, list_rhs, list_proj_flux,
                          pad_quantize=pad_quantize, device=device)
         self.V_flux = mesh_space(msh, "DRT", degree_flux)
         self.equilibrate_stress = equilibrate_stress
         self.estimate_korn_constant = estimate_korn_constant
         self.korn_constants = None
+        if equilibrate_stress and self.n_fluxes < 2:
+            raise ValueError("stress equilibration needs gdim flux rows")
 
     def _to_corrector(self, x_rt) -> Function:
         """DRT dofs of a conforming RT dof vector: reference functionals are
@@ -184,7 +185,27 @@ class FluxEqlbSE(FluxEquilibrator):
         return Function(self.V_flux, x)
 
     def equilibrate_fluxes(self):
-        x = self._solve()
+        if self.equilibrate_stress and self.degree_flux < 2:
+            # reference se/reconstruction.hpp:357-388 enforces the same
+            raise ValueError("stress equilibration requires flux degree >= 2")
+        groups, skip = [], None
+        if (self.equilibrate_stress and self.degree_flux == 2
+                and self.boundary_data is not None):
+            # deficient pure-traction boundary patches are merged with an
+            # adjacent interior patch and corrected jointly (reference
+            # se/reconstruction.hpp:166-234 patch grouping); only truly
+            # ungroupable meshes raise (eqlb.grouping.build_groups)
+            from .grouping import build_groups
+
+            groups, skip = build_groups(
+                self.engine, np.asarray(self.boundary_data.facet_kind[:2]))
+        x = self._solve(weak_symmetry=self.equilibrate_stress,
+                        ws_skip_nodes=skip)
+        if groups:
+            from .grouping import grouped_weak_symmetry
+
+            x[:2] = grouped_weak_symmetry(
+                self.engine, x[:2], self.boundary_data.facet_kind[:2], groups)
         self.list_flux = []
         for i in range(self.n_fluxes):
             sig_r = self._to_corrector(x[i])
@@ -193,6 +214,11 @@ class FluxEqlbSE(FluxEquilibrator):
             self.list_flux.append(
                 Function(self.V_flux, sig_r.x - proj_d.x)
             )
+        if self.estimate_korn_constant:
+            from .korn import estimate_korn_constants
+
+            self.korn_constants = estimate_korn_constants(
+                self.mesh, device=self.device)
 
     def get_korn_constants(self):
         if self.korn_constants is None:

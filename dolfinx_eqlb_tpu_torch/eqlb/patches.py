@@ -28,7 +28,8 @@ import numpy as np
 from ..fem.spaces import FunctionSpace
 from ..mesh.topology import TriMesh
 
-__all__ = ["PatchBucket", "build_patches"]
+__all__ = ["PatchBucket", "build_patches", "deficient_stress_vertices",
+           "refine_for_stress"]
 
 
 @dataclass
@@ -254,3 +255,44 @@ def bucket_dof_tables(bucket: PatchBucket, V_flux: FunctionSpace):
         "p1_idx": p1_idx,
         "np1": 1 + ns,
     }
+
+
+def deficient_stress_vertices(mesh, facet_kind2: np.ndarray) -> np.ndarray:
+    """Boundary vertices whose patch cannot satisfy the weak-symmetry
+    constraints at flux degree 2: pure-traction patches with <= 2 cells.
+
+    Dimension count (k = 2): the joint divergence-free correction space of
+    the two stress rows has dimension 2(n-1), the P1 constraint space n+1 —
+    infeasible exactly for n <= 2.  The reference handles these by patch
+    grouping (``se/reconstruction.hpp:166-234``) or raises "Incompatible
+    mesh!" — here the caller either refines (``refine_for_stress``) or
+    groups them (``eqlb.grouping``).
+    """
+    counts = (mesh.v2c_offsets[1:] - mesh.v2c_offsets[:-1]).astype(np.int64)
+    out = []
+    for z in np.where(mesh.is_boundary_vertex & (counts <= 2))[0]:
+        spokes = mesh.vertex_facets(z)
+        bspokes = spokes[mesh.is_boundary_facet[spokes]]
+        if np.all(facet_kind2[:, bspokes] == 2):
+            out.append(z)
+    return np.array(out, dtype=np.int64)
+
+
+def refine_for_stress(mesh, traction_facets: np.ndarray):
+    """Bisect the outer facets of deficient pure-traction corner patches so
+    every boundary patch has >= 3 cells (sufficient for the weak-symmetry
+    constraints at degree 2; cf. deficient_stress_vertices)."""
+    from ..mesh.refine import refine_facets
+
+    kind = np.zeros((1, mesh.num_facets), dtype=np.int8)
+    kind[0, mesh.boundary_facets] = 1
+    kind[0, np.asarray(traction_facets, dtype=np.int64)] = 2
+    bad = deficient_stress_vertices(mesh, np.repeat(kind, 2, axis=0))
+    if len(bad) == 0:
+        return mesh
+    outer = []
+    for z in bad:
+        for c in mesh.vertex_cells(z):
+            ln = int(np.where(mesh.cells[c] == z)[0][0])
+            outer.append(int(mesh.cell_facets[c, ln]))
+    return refine_facets(mesh, np.unique(outer))

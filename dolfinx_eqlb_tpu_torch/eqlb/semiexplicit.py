@@ -393,6 +393,14 @@ def z_mask_x(engine, key, ess):
     return free
 
 
+def z_mask_bl(engine, key, ess):
+    """Per-RHS variant of :func:`z_mask_x`: ess (n_rhs, 2, P) ->
+    (n_rhs, Dz, P) True = column active."""
+    n_rhs, _, P = ess.shape
+    free = z_mask_x(engine, key, ess.movedim(1, 0).reshape(2, n_rhs * P))
+    return free.view(-1, n_rhs, P).movedim(1, 0)
+
+
 def solve_bucket_semiexplicit(engine, key, dprT, facet_kind, bvals, dv, refd):
     """Full reduced solve of one bucket (batch-last packed input
     dprT (n_rhs, 3, ndg, nc) = [sigma_proj | rhs]) -> (n_rhs, nflux, P)

@@ -5,5 +5,6 @@ from .generators import (  # noqa: F401
     rectangle,
     lshape,
     permute_vertices,
+    cook_membrane,
 )
 from .refine import refine_uniform, refine_marked, refine_facets  # noqa: F401

@@ -4,8 +4,9 @@ Covers the mesh families the reference obtains from DOLFINx / gmsh
 (``demo_reconstruction.py:63-246``): structured unit squares (left / right /
 crossed diagonals), an unstructured Delaunay fixture with reversed facet
 orientations (the role of ``create_unitsquare_gmsh`` in the reference test
-fixtures, ``test/unit/utils.py:136-176``) and the adaptive-demo L-shape
-(``poisson_adaptive/demo_lshape.py``).
+fixtures, ``test/unit/utils.py:136-176``), the adaptive-demo L-shape
+(``poisson_adaptive/demo_lshape.py``) and Cook's membrane
+(``elasticity_adaptive/demo_cook.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ __all__ = [
     "rectangle",
     "lshape",
     "permute_vertices",
+    "cook_membrane",
 ]
 
 
@@ -190,3 +192,41 @@ def lshape(n: int) -> TriMesh:
             # bisect towards the reentrant corner for symmetry
             cells += [[a, b, d], [a, d, e]]
     return TriMesh(np.array(pts), np.array(cells, dtype=np.int32))
+
+
+def cook_membrane(nx: int, ny: int) -> TriMesh:
+    """Cook's membrane: quadrilateral (0,0)-(48,44)-(48,60)-(0,44), mapped
+    structured grid (reference ``elasticity_adaptive/demo_cook.py``).
+
+    Crossed diagonals so every boundary vertex patch has >= 2 cells (the
+    reference refines 1-cell boundary patches away and groups 2-cell
+    boundary patches, ``se/Patch.cpp:60-104``)."""
+    xi = np.linspace(0.0, 1.0, nx + 1)
+    eta = np.linspace(0.0, 1.0, ny + 1)
+
+    def xymap(XI, ETA):
+        X = 48.0 * XI
+        Y = 44.0 * ETA * (1.0 - XI) + XI * (44.0 + 16.0 * ETA)
+        return X, Y
+
+    XI, ETA = np.meshgrid(xi, eta, indexing="ij")
+    X, Y = xymap(XI, ETA)
+    pts = np.stack([X.ravel(), Y.ravel()], axis=-1)
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    nv = len(pts)
+    XIc, ETAc = np.meshgrid(
+        0.5 * (xi[:-1] + xi[1:]), 0.5 * (eta[:-1] + eta[1:]), indexing="ij"
+    )
+    Xc, Yc = xymap(XIc, ETAc)
+    pts = np.concatenate([pts, np.stack([Xc.ravel(), Yc.ravel()], axis=-1)])
+    cells = []
+    for i in range(nx):
+        for j in range(ny):
+            c = nv + i * ny + j
+            a, b = vid(i, j), vid(i + 1, j)
+            d, e = vid(i + 1, j + 1), vid(i, j + 1)
+            cells += [[a, b, c], [b, d, c], [d, e, c], [e, a, c]]
+    return TriMesh(pts, np.array(cells, dtype=np.int32))

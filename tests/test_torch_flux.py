@@ -388,10 +388,31 @@ def test_weak_symmetry_check_matches_jax(symmetric):
 
 
 def test_stress_and_korn_not_ported(flows):
-    t = flows("crossed", 2, "dirichlet")["torch"]
-    for kw in ({"equilibrate_stress": True}, {"estimate_korn_constant": True}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            teqlb.FluxEqlbSE(2, t["mesh"], t["p"]["rhs"], t["sp"], **kw)
+    """The name is kept from when stress and Korn constants raised
+    NotImplementedError; since they are ported the test holds the JAX
+    package's behaviour (``eqlb/equilibrators.py:157-158, 169-171``): stress
+    equilibration needs two flux rows and flux degree >= 2, and
+    ``estimate_korn_constant=True`` alone adds the Korn constants to a flux
+    equilibration, equal to JAX's."""
+    t = flows("crossed", 1, "dirichlet")["torch"]
+    rhs, sp = t["p"]["rhs"], t["sp"]
+    with pytest.raises(ValueError, match="gdim flux rows"):
+        teqlb.FluxEqlbSE(1, t["mesh"], rhs, sp, equilibrate_stress=True)
+    eq = teqlb.FluxEqlbSE(1, t["mesh"], rhs * 2, sp * 2,
+                          equilibrate_stress=True)
+    with pytest.raises(ValueError, match="flux degree >= 2"):
+        eq.equilibrate_fluxes()
+    j = flows("crossed", 2, "dirichlet")
+    eq = teqlb.FluxEqlbSE(2, j["torch"]["mesh"], j["torch"]["p"]["rhs"],
+                          j["torch"]["sp"], estimate_korn_constant=True)
+    eq.set_boundary_conditions([j["torch"]["p"]["prime"]],
+                               [j["torch"]["p"]["bcs"]])
+    eq.equilibrate_fluxes()
+    _close(eq.list_flux[0].x, j["jax"]["SE"].list_flux[0].x)
+    from dolfinx_eqlb_tpu.eqlb.korn import estimate_korn_constants
+
+    _close(eq.get_korn_constants().x,
+           estimate_korn_constants(j["jax"]["mesh"]).x, rel=1e-12)
 
 
 def test_no_card_default_raises(flows, monkeypatch):
