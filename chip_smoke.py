@@ -25,7 +25,10 @@ the port's ``demos.lshape_adaptive``, ``demos.error_estimation`` and
 ``demos.discont_coeff``, held to the JAX package's committed runs; then
 weakly symmetric stress equilibration (K1, K2 and K3 on its operands):
 the stress engine, the elasticity user flow and its committed runs, the
-KKT mode and the reduced formulation, and the adaptive Cook loop.
+KKT mode and the reduced formulation, and the adaptive Cook loop; then
+geometric multigrid and Biot poro-elasticity (K1, K2 on the Biot path's
+operands): ``bench.py 500 3 --biot``'s data and engine calls, the Biot
+demo's flow, and the multigrid solvers and perftest series.
 
 Phases, one line each:
 
@@ -111,7 +114,28 @@ Phases, one line each:
       theta 0.5, ``cook_membrane(2, 2)``): the demo's 6 iterations and
       overkill reference, the first 10 iterations against the CPU, the
       loop run on to 50,000 cells (one line per step), and 2 iterations at
-      RT2, where the corner patches are grouped.
+      RT2, where the corner patches are grouped;
+  19. ``bench.py 500 3 --biot``'s headline: ``mesh_hierarchy(
+      unit_square(16), 6)`` (1,048,576 cells), ``biot_bench_fields`` (f32
+      block-MG MINRES, rtol 1e-6): the set-up seconds of ``BiotMG`` by
+      level (tables, power iteration, coarse inverse), MINRES iterations,
+      residual and ms an iteration, the V-cycles' ms by level; then the
+      engine (RT2, f32, 3 rows, chunk 131072) without and with weak
+      symmetry on rows 0/1: strict and pipelined ms, launches (K1's by
+      route), peak memory, the output against the plain route, K1 and K2
+      on each call's operands;
+  20. ``demos.biot.run`` (``demo_biot``'s configuration, P2/RT2, f64,
+      MINRES to 1e-12) at n = 256: stage seconds, iterations, the
+      divergence and jump checks of the three fields and the weak-symmetry
+      check, K1 and K2 on the equilibrator's operands; at n = 16 card
+      against CPU (1e-11 relative, iterations within one);
+  21. multigrid: the P2 Poisson V-cycle MINRES for 2-6 levels from
+      ``unit_square(4)``, the V-cycle's symmetry in f64 (block sizes 1 and
+      2), the MG elasticity CG (P2) and Herrmann MINRES (P3 x P2) on the
+      hierarchy of ``unit_square(8)`` to 1,048,576 cells, and
+      ``run_perftest`` for "elasticity" and "biot" (orders 2-4, n0 = 8,
+      nrefs = 5), its structural columns held row for row to
+      ``artifacts/Perftest_*.csv``.
 
 Kernel times are CUDA-event means of single launches, each after a write
 of 256 MB that leaves the 50 MB L2 cold.  ``--k1-sweep`` only builds the
@@ -2371,6 +2395,518 @@ def report_cook(r: dict, nph: int, failures: list) -> None:
         failures.append("Cook loop at RT2: no patch groups")
 
 
+# --- slice 5: multigrid and Biot poro-elasticity ---------------------------------
+
+BIOT_COARSE, BIOT_LEVELS = 16, 6  # bench.py --biot: 1,048,576 cells
+# Jacobi CG iterations of the elasticity flow at n = 500 (phase 16, PERF.md
+# section 5), beside the multigrid counts of phase 21
+JACOBI_CG_ITS_N500 = 6194
+
+
+def vcycle_ms(mg, timer, seed: int = 0) -> dict:
+    """Device ms of one V-cycle of ``mg`` (CUDA events, cold L2): the cycle
+    from each level down, and each level's own share (its cycle less the
+    one below it)."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import _full_f32_matmul
+
+    ops = mg.operands()
+    gen = torch.Generator(device=mg.device).manual_seed(seed)
+    down = []
+    for lvl in range(mg.nlevels):
+        o = ops[lvl]
+        r = torch.randn(o["Dinv"].shape[0], generator=gen, device=mg.device,
+                        dtype=mg.dtype) * o["free"]
+        with _full_f32_matmul():
+            down.append(timer.ms(lambda: mg._vcycle(lvl, r, ops), reps=5))
+    own = [down[0]] + [b - a for a, b in zip(down, down[1:])]
+    return {"apply_ms": down[-1], "cycle_from_level_ms": down,
+            "level_own_ms": own}
+
+
+def mg_setup_rows(mg) -> list:
+    return [{key: (round(v, 4) if isinstance(v, float) else v)
+             for key, v in row.items()} for row in mg.setup_s]
+
+
+def engine_call_checks(eng, call, weak_symmetry, dpT, drT, fk, bv, device,
+                       limit_rel) -> dict:
+    """Drive ``call`` (first, strict and pipelined), read its launches (K1's
+    by route), its output against the plain route (solver "torch", plain
+    combine, same tables) and K1 and K2 against their plain versions on
+    its own operands."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
+    from dolfinx_eqlb_tpu_torch.ops.lane_select import combine_gather_plain
+
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    x, res = drive(call, device)
+    res["launches"] = read_launches()
+    res["k1_launches_by_route"] = dict(
+        kernel_wrappers()["K1"].launches_by_route)
+    res["calls"] = 1 + len(res["strict_ms"]) + 8 * len(res["pipelined_ms"])
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    res["shape_ok"] = tuple(x.shape) == (dpT.shape[0], eng.V.ndofs)
+    res["finite"] = bool(torch.isfinite(x).all())
+    ref = EqlbEngine.from_host_tables(
+        eng.V, eng.buckets, eng.tables, eng.se_static, eng.ref,
+        dtype=eng.dtype, device=device)
+    ref.solver = "torch"
+    if weak_symmetry:
+        ref.ensure_stress_caches()
+    x_ref = combine_gather_plain(
+        ref._bucket_solutions(dpT, drT, fk, bv, weak_symmetry=weak_symmetry),
+        ref._combine_src(), ref._nfk)
+    del ref
+    res["max_abs_err_vs_plain"] = float((x - x_ref).abs().max())
+    res["err_limit"] = limit_rel * float(x_ref.abs().max())
+    del x, x_ref
+    torch.cuda.empty_cache()
+    res["kernel_checks"] = engine_kernel_checks(eng, call)
+    return res
+
+
+def phase_biot_bench(device, timer, coarse: int = BIOT_COARSE,
+                     nlevels: int = BIOT_LEVELS) -> dict:
+    """Phase 19: ``bench.py 500 3 --biot``'s headline on the port: the
+    hierarchy ``mesh_hierarchy(unit_square(16), 6)`` (1,048,576 cells),
+    ``biot_bench_fields`` (P2 / P2 / P1, f32 block-MG MINRES at rtol 1e-6,
+    maxiter 400), then the engine (RT2, f32, 3 rows, chunk ``CHUNK``, every
+    boundary facet kind 1) without weak symmetry, as the bench calls it,
+    and with it on rows 0/1.  Reports the set-up seconds (``BiotMG`` by
+    level: tables, power iteration, coarse inverse), MINRES iterations,
+    residual, seconds and ms per iteration, the V-cycles' ms by level, the
+    operator's ms, the fields' seconds, both calls' strict and pipelined
+    ms, peak memory, launches (K1's by route), the output against the
+    plain route and K1 and K2 on each call's own operands."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
+    from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
+    from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
+    from dolfinx_eqlb_tpu_torch.fem.multigrid import mesh_hierarchy
+    from dolfinx_eqlb_tpu_torch.mesh import unit_square
+    from dolfinx_eqlb_tpu_torch.models.biot import biot_bench_fields
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    res = {}
+    t0 = time.perf_counter()
+    meshes = mesh_hierarchy(unit_square(coarse), nlevels)
+    res["hierarchy_s"] = time.perf_counter() - t0
+    msh = meshes[-1]
+    res["cells"] = msh.num_cells
+    info = {}
+    t0 = time.perf_counter()
+    d_proj, d_rhs = biot_bench_fields(
+        msh, 2, rtol=1e-6, maxiter=400, dtype=torch.float32, chunk=25,
+        mg_meshes=meshes, device=device, info=info)
+    sync(device)
+    res["bench_fields_s"] = time.perf_counter() - t0
+    solver, mg = info["solver"], info["mg"]
+    res["stages_s"] = info["stages_s"]
+    res["ndofs"] = solver.nu + solver.np_ + solver.npt
+    res["mg_u_setup"] = mg_setup_rows(mg.mg_u)
+    res["mg_p_setup"] = mg_setup_rows(mg.mg_p)
+    its = solver.last_iterations
+    res.update(iterations=its, maxiter=solver.last_maxiter,
+               residual=solver.last_residual,
+               solve_ms_per_iteration=res["stages_s"]["solve"] * 1e3
+               / max(its, 1))
+    res["data_peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    # the same solve again, with the allocator and libraries warm
+    fe, ge = info["data"]
+    t0 = time.perf_counter()
+    solver.solve(fe, ge, msh.boundary_facets, rtol=1e-6, maxiter=400, mg=mg)
+    sync(device)
+    res["solve_again_s"] = time.perf_counter() - t0
+    res["solve_again_ms_per_iteration"] = (res["solve_again_s"] * 1e3
+                                           / max(solver.last_iterations, 1))
+    res["vcycle_u"] = vcycle_ms(mg.mg_u, timer)
+    res["vcycle_p"] = vcycle_ms(mg.mg_p, timer)
+    x = torch.randn(res["ndofs"], device=device, dtype=torch.float32)
+    res["psolve_ms"] = timer.ms(lambda: mg.psolve(x), reps=5)
+    res["matvec_ms"] = timer.ms(lambda: solver.matvec(x), reps=5)
+    res["fields_ok"] = (
+        tuple(d_proj.shape) == (3, msh.num_cells, 2, 3)
+        and tuple(d_rhs.shape) == (3, msh.num_cells, 3)
+        and bool(torch.isfinite(d_proj).all())
+        and bool(torch.isfinite(d_rhs).all())
+        and float(d_proj.abs().max()) > 1e-3)
+    del info, solver, mg, x, meshes, fe, ge
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    buckets = build_patches(msh)
+    eng = EqlbEngine(FunctionSpace(msh, "RT", 2), buckets,
+                     dtype=torch.float32, device=device,
+                     max_patches_per_bucket=CHUNK)
+    eng._device_tables()
+    sync(device)
+    res["engine_setup_s"] = time.perf_counter() - t0
+    dpT = d_proj.movedim(1, -1).contiguous().to(torch.float32)
+    drT = d_rhs.movedim(1, -1).contiguous().to(torch.float32)
+    del d_proj, d_rhs
+    fk = torch.as_tensor(
+        np.where(msh.is_boundary_facet, 1, 0).astype(np.int8)[None].repeat(
+            3, 0), device=device)
+    bv = torch.zeros((3, msh.num_facets, 2), dtype=torch.float32,
+                     device=device)
+    res["k1_shapes"] = solve_shapes(eng)
+
+    def call():
+        return eng.equilibrate(dpT, drT, fk, bv, transposed_inputs=True)
+
+    def call_ws():
+        return eng.equilibrate(dpT, drT, fk, bv, weak_symmetry=True,
+                               transposed_inputs=True)
+
+    res["flux"] = engine_call_checks(eng, call, False, dpT, drT, fk, bv,
+                                     device, 1e-4)
+    t0 = time.perf_counter()
+    eng.ensure_stress_caches()
+    sync(device)
+    res["stress_cache_s"] = time.perf_counter() - t0
+    res["ws"] = engine_call_checks(eng, call_ws, True, dpT, drT, fk, bv,
+                                   device, 1e-3)
+    res["ws"]["sing_patches"] = sing_counts(eng)
+    del eng, dpT, drT
+    torch.cuda.empty_cache()
+    return res
+
+
+def report_biot_bench(r: dict, nph: int, failures: list) -> None:
+    st = r["stages_s"]
+    log(f"[19/{nph}] Biot bench (bench.py 500 3 --biot) mesh_hierarchy("
+        f"unit_square({BIOT_COARSE}), {BIOT_LEVELS}) {r['cells']} cells, "
+        f"{r['ndofs']} u-p-pt dofs f32: hierarchy {r['hierarchy_s']:.2f} s; "
+        f"biot_bench_fields {r['bench_fields_s']:.2f} s (" + ", ".join(
+            f"{key} {val:.3f} s" for key, val in st.items()) + "); MINRES "
+        f"{r['iterations']} iterations of {r['maxiter']}, residual "
+        f"{r['residual']:.3e}, {r['solve_ms_per_iteration']:.3f} ms an "
+        f"iteration ({r['solve_again_ms_per_iteration']:.3f} ms solved "
+        f"again); block V-cycle {r['psolve_ms']:.3f} ms (u "
+        f"{r['vcycle_u']['apply_ms']:.3f}, p {r['vcycle_p']['apply_ms']:.3f})"
+        f", operator {r['matvec_ms']:.3f} ms; data peak "
+        f"{r['data_peak_mem_gib']:.2f} GiB; engine set-up "
+        f"{r['engine_setup_s']:.2f} s; stress caches "
+        f"{r['stress_cache_s']:.3f} s")
+    for name, lv in (("u", r["mg_u_setup"]), ("p", r["mg_p_setup"])):
+        log(f"    BiotMG {name} set-up by level (s): " + "; ".join(
+            f"L{row['level']} {row['cells']} cells total {row['total_s']}"
+            f" power {row['power_iteration_s']}"
+            + (f" inverse {row['coarse_inverse_s']}"
+               if "coarse_inverse_s" in row else "") for row in lv))
+        vc = r[f"vcycle_{name}"]
+        log(f"    V-cycle {name} ms by level (own share): " + ", ".join(
+            f"L{i} {ms:.4f}" for i, ms in enumerate(vc["level_own_ms"])))
+    if not r["fields_ok"]:
+        failures.append("Biot bench: the fields have a wrong shape or "
+                        "non-finite values")
+    if not r["iterations"] < r["maxiter"]:
+        failures.append(f"Biot bench: MINRES did not converge in "
+                        f"{r['maxiter']} iterations")
+    for name, label in (("flux", "without weak symmetry"),
+                        ("ws", "with weak symmetry on rows 0/1")):
+        c = r[name]
+        kc = c["kernel_checks"]
+        log(f"[19/{nph}] Biot bench engine RT2 f32 3 rows {label}: first "
+            f"call {c['first_call_s']:.3f} s, strict "
+            f"{c['strict_ms_median']:.3f} ms median, pipelined "
+            f"{c['pipelined_ms_min']:.3f} ms; launches {c['launches']} over "
+            f"{c['calls']} calls, K1 by route {c['k1_launches_by_route']}; "
+            f"peak {c['peak_mem_gib']:.2f} GiB; max|x - plain| "
+            f"{c['max_abs_err_vs_plain']:.3e} (limit {c['err_limit']:.3e}); "
+            "K1 vs plain on its operands " + "; ".join(
+                f"{k['dtype']} D={k['D']} R={k['R']} X={k['X']} max_rel_err "
+                f"{k['max_rel_err']:.3e}" for k in kc["K1"])
+            + f"; K2 bitwise {kc['K2']['bitwise']}")
+        if c["launches"]["K1"] <= 0 or c["launches"]["K2"] <= 0:
+            failures.append(f"Biot bench {name}: a kernel was skipped: "
+                            f"{c['launches']}")
+        check_k1_routes(f"Biot bench {name}", c["k1_launches_by_route"],
+                        r["k1_shapes"], torch.float32, failures)
+        if not (c["shape_ok"] and c["finite"]):
+            failures.append(f"Biot bench {name}: wrong shape or non-finite")
+        if not c["max_abs_err_vs_plain"] <= c["err_limit"]:
+            failures.append(f"Biot bench {name} disagrees with the plain "
+                            "route")
+        if not all(k["ok"] for k in kc["K1"]) or not kc["K2"]["ok"]:
+            failures.append(f"Biot bench {name}: a kernel disagrees with "
+                            "its plain version")
+    log("    detail: " + json.dumps(
+        {key: ({k: v for k, v in val.items() if k != "kernel_checks"}
+               if isinstance(val, dict) else val) for key, val in r.items()}))
+
+
+def phase_biot_flow(device, n: int = 256, n_parity: int = 16) -> dict:
+    """Phase 20: ``demos.biot.run`` (``demo_biot``'s configuration: the
+    hierarchy from ``unit_square(4)``, P2 / P2 / P1, block-MG MINRES at
+    rtol 1e-12, ``biot_fields``, one ``FluxEqlbSE(equilibrate_stress=True)``
+    over the three fields, RT2) in f64 at ``n``: stage seconds, MINRES
+    iterations, the divergence and jump checks of every field and the weak
+    symmetry check, launches (K1's by route), peak memory, K1 and K2 on the
+    equilibrator's operands.  Then the same flow at ``n_parity`` on the card
+    and on the CPU: the dofs within 1e-11 relative, the MINRES iterations
+    within one."""
+    from dolfinx_eqlb_tpu_torch.demos import biot as demo
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    res = {"n": n}
+    info = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    demo.run(n, 2, device=device, verbose=False, info=info)
+    res["seconds"] = time.perf_counter() - t0
+    res["launches"] = read_launches()
+    res["k1_launches_by_route"] = dict(
+        kernel_wrappers()["K1"].launches_by_route)
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    for key in ("stages_s", "iterations", "maxiter", "residual", "checks",
+                "cells"):
+        res[key] = info[key]
+    res["levels"] = len(info["meshes"])
+    eq = info["eq"]
+    res["k1_shapes"] = solve_shapes(eq.engine)
+    res["kernel_checks"] = flux_kernel_checks(eq)
+    del info, eq
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for dv in (device, "cpu"):
+        info = {}
+        demo.run(n_parity, 2, device=dv, verbose=False, info=info)
+        runs[str(dv)] = (torch.cat([x.cpu() for x in info["x"]]),
+                         info["iterations"], info["checks"])
+    card, cpu = runs[str(device)], runs["cpu"]
+    err = float((card[0] - cpu[0]).abs().max())
+    res["parity"] = dict(n=n_parity, max_abs_err=err,
+                         max_rel_err=err / float(cpu[0].abs().max()),
+                         iterations=[card[1], cpu[1]],
+                         checks_identical=card[2] == cpu[2])
+    return res
+
+
+def report_biot_flow(r: dict, nph: int, failures: list) -> None:
+    log(f"[20/{nph}] Biot flow (demos.biot) n={r['n']} ({r['cells']} cells,"
+        f" {r['levels']} levels) P2/RT2 f64: {r['seconds']:.1f} s; stages "
+        f"(s) " + ", ".join(f"{key} {val:.3f}"
+                            for key, val in r["stages_s"].items())
+        + f"; MINRES {r['iterations']} iterations of {r['maxiter']}, "
+        f"residual {r['residual']:.3e}; checks {r['checks']}; launches "
+        f"{r['launches']}, K1 by route {r['k1_launches_by_route']}; peak "
+        f"{r['peak_mem_gib']:.2f} GiB")
+    kc = r["kernel_checks"]
+    log("    kernels vs plain on the equilibrator's operands: K1 "
+        + "; ".join(f"D={c['D']} R={c['R']} X={c['X']} max_rel_err "
+                    f"{c['max_rel_err']:.3e}" for c in kc["K1"])
+        + f" (limit 1e-12); K2 bitwise {kc['K2']['bitwise']}")
+    p = r["parity"]
+    ok = (p["max_rel_err"] <= 1e-11
+          and abs(p["iterations"][0] - p["iterations"][1]) <= 1
+          and p["checks_identical"])
+    log(f"[20/{nph}] Biot flow n={p['n']} card vs CPU: max_rel_err "
+        f"{p['max_rel_err']:.3e} (limit 1e-11), MINRES iterations "
+        f"{p['iterations']} (card, CPU), checks identical "
+        f"{p['checks_identical']}{'' if ok else '  FAILED'}")
+    log("    detail: " + json.dumps(
+        {key: val for key, val in r.items() if key != "kernel_checks"}))
+    if not r["checks"] or not all(r["checks"].values()):
+        failures.append(f"Biot flow: a check failed: {r['checks']}")
+    if not r["iterations"] < r["maxiter"]:
+        failures.append("Biot flow: MINRES did not converge")
+    if r["launches"]["K1"] <= 0 or r["launches"]["K2"] <= 0:
+        failures.append(f"Biot flow skipped a kernel: {r['launches']}")
+    check_k1_routes("Biot flow", r["k1_launches_by_route"], r["k1_shapes"],
+                    torch.float64, failures)
+    if not all(c["ok"] for c in kc["K1"]) or not kc["K2"]["ok"]:
+        failures.append("Biot flow: a kernel disagrees with its plain "
+                        "version")
+    if not ok:
+        failures.append("Biot flow: card and CPU disagree")
+
+
+def mg_poisson_run(device, nlevels: int, gen) -> dict:
+    """The P2 Poisson V-cycle MINRES (rtol 1e-10) on
+    ``mesh_hierarchy(unit_square(4), nlevels)``, f64."""
+    from dolfinx_eqlb_tpu_torch.fem.krylov import minres
+    from dolfinx_eqlb_tpu_torch.fem.multigrid import (
+        GeometricMG, mesh_hierarchy, scalar_stiffness_tensors,
+    )
+    from dolfinx_eqlb_tpu_torch.mesh import unit_square
+
+    meshes = mesh_hierarchy(unit_square(4), nlevels)
+    t0 = time.perf_counter()
+    mg = GeometricMG(meshes, 2, lambda m: scalar_stiffness_tensors(m, 2),
+                     device=device)
+    setup_s = time.perf_counter() - t0
+    o = mg.operands()[-1]
+    n = o["Dinv"].shape[0]
+    b = torch.randn(n, generator=gen, device=device,
+                    dtype=torch.float64) * o["free"]
+    sync(device)
+    t0 = time.perf_counter()
+    st = minres(lambda v: mg._matvec(o, v), b,
+                torch.zeros(n, dtype=torch.float64, device=device),
+                mg.apply, o["free"] > 0, rtol=1e-10, maxiter=2000)
+    sync(device)
+    s = time.perf_counter() - t0
+    return dict(levels=nlevels, cells=meshes[-1].num_cells, dofs=n,
+                iterations=st["it"], setup_s=setup_s, solve_s=s,
+                ms_per_iteration=s * 1e3 / max(st["it"], 1),
+                converged=float(st["phibar"]) < 1e-9 * float(b.norm()))
+
+
+def vcycle_symmetry(mg, gen) -> dict:
+    """|<B r1, r2> - <r1, B r2>| against 1e-12 ||B r1|| ||r2||."""
+    o = mg.operands()[-1]
+    r1, r2 = (torch.randn(o["Dinv"].shape[0], generator=gen,
+                          device=mg.device, dtype=torch.float64) * o["free"]
+              for _ in range(2))
+    z1, z2 = mg.apply(r1), mg.apply(r2)
+    dev = abs(float(torch.dot(z1, r2) - torch.dot(r1, z2)))
+    limit = 1e-12 * float(z1.norm() * r2.norm())
+    return dict(deviation=dev, limit=limit, ok=dev <= limit)
+
+
+PERFTEST_CSVS = {"elasticity": "artifacts/Perftest_elasticity.csv",
+                 "biot": "artifacts/Perftest_biot.csv"}
+
+
+def phase_multigrid(device, n_levels_ela: int = 7, perftest_nrefs: int = 5,
+                    poisson_levels=range(2, 7)) -> dict:
+    """Phase 21: multigrid on the card, f64.  The P2 Poisson V-cycle MINRES
+    on ``mesh_hierarchy(unit_square(4), L)`` for each L (mesh
+    independence) and the V-cycle's symmetry (block sizes 1 and 2) on the
+    deepest; the MG elasticity CG (P2, u) and the MG Herrmann MINRES
+    (P3 x P2, u-p) on ``mesh_hierarchy(unit_square(8), 7)`` (the size of
+    ``unit_square(512)``), iterations and seconds; then ``run_perftest``
+    for "elasticity" and "biot", orders 2-4, n0 = 8, nrefs = 5, repeats 1:
+    its structural columns against the committed
+    ``artifacts/Perftest_*.csv`` row for row, its times recorded."""
+    import csv
+
+    from dolfinx_eqlb_tpu_torch.demos.elasticity import f_body, u_exact
+    from dolfinx_eqlb_tpu_torch.fem import FunctionSpace, expr_from_callable
+    from dolfinx_eqlb_tpu_torch.fem.multigrid import (
+        GeometricMG, mesh_hierarchy, scalar_stiffness_tensors,
+        vector_eps_tensors,
+    )
+    from dolfinx_eqlb_tpu_torch.mesh import unit_square
+    from dolfinx_eqlb_tpu_torch.models.elasticity import (
+        ElasticitySolver, ElasticitySolverUP,
+    )
+    from dolfinx_eqlb_tpu_torch.utils.perftest import run_perftest
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    res = {"poisson": [mg_poisson_run(device, nl, gen)
+                       for nl in poisson_levels]}
+    meshes = mesh_hierarchy(unit_square(4), max(poisson_levels))
+    res["symmetry"] = {
+        "bs1": vcycle_symmetry(GeometricMG(
+            meshes, 2, lambda m: scalar_stiffness_tensors(m, 2),
+            device=device), gen),
+        "bs2": vcycle_symmetry(GeometricMG(
+            meshes, 2, lambda m: vector_eps_tensors(m, 2), block_size=2,
+            device=device), gen)}
+    del meshes
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(device)
+    meshes = mesh_hierarchy(unit_square(8), n_levels_ela)
+    msh = meshes[-1]
+    f = expr_from_callable(f_body, msh, value_size=2)
+    ud = expr_from_callable(u_exact, msh, value_size=2)
+    ela = {"cells": msh.num_cells}
+    t0 = time.perf_counter()
+    s = ElasticitySolver(FunctionSpace(msh, "P", 2, vs=2), 1.0,
+                         device=device)
+    mg = GeometricMG(meshes, 2,
+                     lambda m: vector_eps_tensors(m, 2, div_coeff=1.0),
+                     block_size=2, device=device)
+    sync(device)
+    ela["u_setup_s"] = time.perf_counter() - t0
+    ela["u_mg_setup"] = mg_setup_rows(mg)
+    t0 = time.perf_counter()
+    uh = s.solve(f, msh.boundary_facets, ud, rtol=1e-12, mg_meshes=mg)
+    sync(device)
+    ela.update(u_solve_s=time.perf_counter() - t0,
+               u_iterations=s.last_iterations, u_maxiter=s.last_maxiter,
+               u_dofs=s.ndofs, u_finite=bool(torch.isfinite(uh.x).all()))
+    del s, mg, uh
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sup = ElasticitySolverUP(FunctionSpace(msh, "P", 3, vs=2),
+                             FunctionSpace(msh, "P", 2), 1.0, device=device)
+    uu, pp = sup.solve(f, msh.boundary_facets, ud, rtol=1e-12,
+                       mg_meshes=meshes)
+    sync(device)
+    ela.update(up_s=time.perf_counter() - t0,
+               up_iterations=sup.last_iterations, up_maxiter=sup.last_maxiter,
+               up_dofs=sup.nu + sup.np_,
+               up_finite=bool(torch.isfinite(uu.x).all()
+                              and torch.isfinite(pp.x).all()))
+    ela["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    del sup, uu, pp, meshes, msh
+    torch.cuda.empty_cache()
+    res["elasticity"] = ela
+
+    res["perftest"] = {}
+    for tc, path in PERFTEST_CSVS.items():
+        t0 = time.perf_counter()
+        rows = run_perftest(tc, orders=(2, 3, 4), n0=8,
+                            nrefs=perftest_nrefs, repeats=1, out_csv=None,
+                            device=device)
+        with open(repo_file(path)) as fh:
+            want = [(int(w["order"]), int(w["ncells"]), int(w["nnodes"]),
+                     int(w["ndofs_prime"])) for w in csv.DictReader(fh)
+                    if int(w["ncells"]) <= rows[-1]["ncells"]]
+        got = [(r["order"], r["ncells"], r["nnodes"], r["ndofs_prime"])
+               for r in rows]
+        res["perftest"][tc] = dict(
+            seconds=time.perf_counter() - t0, structure_ok=got == want,
+            rows=[{key: (round(v, 4) if isinstance(v, float) else v)
+                   for key, v in r.items()} for r in rows])
+        torch.cuda.empty_cache()
+    return res
+
+
+def report_multigrid(r: dict, nph: int, failures: list) -> None:
+    its = [p["iterations"] for p in r["poisson"]]
+    log(f"[21/{nph}] MG Poisson P2 V-cycle MINRES (rtol 1e-10) by depth: "
+        + "; ".join(f"{p['levels']} levels {p['cells']} cells "
+                    f"{p['iterations']} its {p['ms_per_iteration']:.2f} ms "
+                    f"an iteration (set-up {p['setup_s']:.2f} s)"
+                    for p in r["poisson"])
+        + "; V-cycle symmetry f64 " + ", ".join(
+            f"{name} {s['deviation']:.2e} (limit {s['limit']:.2e})"
+            for name, s in r["symmetry"].items()))
+    if not (all(p["converged"] for p in r["poisson"]) and max(its) <= 25
+            and its[-1] <= its[0] + 5):
+        failures.append(f"MG Poisson: not mesh independent or not "
+                        f"converged: {its}")
+    if not all(s["ok"] for s in r["symmetry"].values()):
+        failures.append("the V-cycle is not symmetric")
+    e = r["elasticity"]
+    log(f"[21/{nph}] MG elasticity on {e['cells']} cells: CG (P2 u, "
+        f"{e['u_dofs']} dofs) {e['u_iterations']} iterations of "
+        f"{e['u_maxiter']} in {e['u_solve_s']:.2f} s (set-up "
+        f"{e['u_setup_s']:.2f} s; Jacobi CG at n = 500: "
+        f"{JACOBI_CG_ITS_N500}); Herrmann MINRES (P3 x P2, {e['up_dofs']} "
+        f"dofs) {e['up_iterations']} iterations of {e['up_maxiter']} in "
+        f"{e['up_s']:.2f} s with its set-up; peak {e['peak_mem_gib']:.2f} "
+        f"GiB")
+    if not (e["u_iterations"] < e["u_maxiter"] and e["u_finite"]
+            and e["up_iterations"] < e["up_maxiter"] and e["up_finite"]):
+        failures.append("MG elasticity: a solve did not converge")
+    for tc, p in r["perftest"].items():
+        log(f"[21/{nph}] run_perftest {tc} orders 2-4 n0 8 nrefs "
+            f"{len(p['rows']) // 3}: {p['seconds']:.1f} s; structural "
+            f"columns equal {PERFTEST_CSVS[tc]}: {p['structure_ok']}")
+        if not p["structure_ok"]:
+            failures.append(f"run_perftest {tc}: the structural columns "
+                            f"differ from {PERFTEST_CSVS[tc]}")
+    log("    detail: " + json.dumps(r))
+
+
 def kernel_entry(name, source, replaces, launches, row, errs):
     """One entry of the "kernels" line from a phase row."""
     return {"name": name, "route": "cuda", "source": source,
@@ -2412,7 +2948,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     failures = []
-    nph = 18
+    nph = 21
 
     card = card_line()
     log(card)
@@ -2630,6 +3166,20 @@ def main(argv=None) -> int:
     cook = phase_cook(device)
     marks.append(("18", time.perf_counter()))
     report_cook(cook, nph, failures)
+    torch.cuda.empty_cache()
+
+    biot = phase_biot_bench(device, timer)
+    marks.append(("19", time.perf_counter()))
+    report_biot_bench(biot, nph, failures)
+
+    bflow = phase_biot_flow(device)
+    marks.append(("20", time.perf_counter()))
+    report_biot_flow(bflow, nph, failures)
+    torch.cuda.empty_cache()
+
+    mgr = phase_multigrid(device)
+    marks.append(("21", time.perf_counter()))
+    report_multigrid(mgr, nph, failures)
 
     log("seconds by phase (host clock, each to the end of its run): "
         + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t) in
@@ -2665,6 +3215,10 @@ def main(argv=None) -> int:
         kname: sum(cook[name]["launches"][kname]
                    for name in ("demo", "long", "grouped"))
         for kname in kernel_wrappers()}
+    # slice 5: multigrid and Biot
+    paths["biot_bench_f32"] = biot["flux"]["launches"]
+    paths["biot_bench_ws_f32"] = biot["ws"]["launches"]
+    paths["biot_flow_f64"] = bflow["launches"]
 
     def total(kname):
         return sum(p[kname] for p in paths.values())
@@ -2679,7 +3233,12 @@ def main(argv=None) -> int:
     flux_checks = ([kc for r in api["cases"].values()
                     for kc in r["kernel_checks"].values()]
                    + [r["kernel_checks"] for r in lsh.values()]
-                   + [stress["kernel_checks"], ela["kernel_checks"]])
+                   + [stress["kernel_checks"], ela["kernel_checks"],
+                      biot["flux"]["kernel_checks"],
+                      biot["ws"]["kernel_checks"], bflow["kernel_checks"]])
+    biot_checks = {"biot_bench_f32": biot["flux"]["kernel_checks"],
+                   "biot_bench_ws_f32": biot["ws"]["kernel_checks"],
+                   "biot_flow_f64": bflow["kernel_checks"]}
     k3_stress_checks = (skkt["k3_checks"]
                         + skkt["reduced"]["boundary"]["k3_checks"])
     k3_stress_errs = [c["max_abs_err"] for c in k3_stress_checks]
@@ -2728,12 +3287,22 @@ def main(argv=None) -> int:
             "kellogg_se_f64": uni["kellogg"]["k1_launches_by_route"],
             "stress_se_f32": stress["k1_launches_by_route"],
             "elasticity_flow_f64": ela["k1_launches_by_route"],
-            "cook_loop_demo": cook["demo"]["k1_launches_by_route"]},
+            "cook_loop_demo": cook["demo"]["k1_launches_by_route"],
+            "biot_bench_f32": biot["flux"]["k1_launches_by_route"],
+            "biot_bench_ws_f32": biot["ws"]["k1_launches_by_route"],
+            "biot_flow_f64": bflow["k1_launches_by_route"]},
         lshape_last_step_shapes=[
             {key: c[key] for key in ("D", "R", "X", "route", "ms",
                                      "plain_ms", "library_ms", "bound_ms",
                                      "bound_by", "max_abs_err")}
-            for r in lsh.values() for c in r["kernel_checks"]["K1"]])
+            for r in lsh.values() for c in r["kernel_checks"]["K1"]],
+        biot_operands={
+            name: [{key: c[key] for key in ("dtype", "D", "R", "X", "route",
+                                            "max_rel_err")}
+                   for c in kc["K1"]] for name, kc in biot_checks.items()})
+    entries[1]["biot_operands"] = {
+        name: {key: kc["K2"][key] for key in ("dtype", "ndofs", "bitwise")}
+        for name, kc in biot_checks.items()}
     # K3's numbers are its register route's; the shared route beside them
     k3_row = biggest(k3, "float64")
     entries[2].update(

@@ -12,5 +12,7 @@ cpu`` for the plain versions on the CPU).  They write CSV, not XDMF.
 * ``local_projection``  — cell-local L2 projection into DG2;
 * ``elasticity``        — linear elasticity (u or u-p), weakly symmetric
   stress equilibration, Korn constants, the guaranteed bound;
-* ``cook_adaptive``     — the adaptive Cook's-membrane loop.
+* ``cook_adaptive``     — the adaptive Cook's-membrane loop;
+* ``biot``              — Biot poro-elasticity (u-p-pt) by block-multigrid
+  MINRES, its two stress rows and Darcy flux equilibrated in one call.
 """

@@ -17,3 +17,4 @@ from .projection import (  # noqa: F401
 )
 from .interpolate import interpolate, project_facet_trace  # noqa: F401
 from .assemble import cell_integrals, cell_integrals_sq, assemble_scalar  # noqa: F401
+from .multigrid import GeometricMG, mesh_hierarchy  # noqa: F401

@@ -19,7 +19,7 @@ __all__ = ["minres"]
 
 
 def minres(matvec, b, x0, Minv, free, rtol=1e-12, atol=1e-14, maxiter=1000,
-           operands=None):
+           operands=None, chunk=None):
     """Preconditioned MINRES on the free dofs.
 
     ``matvec`` is the raw operator; essential dofs are handled by
@@ -29,6 +29,9 @@ def minres(matvec, b, x0, Minv, free, rtol=1e-12, atol=1e-14, maxiter=1000,
     FIXED SPD operator on the free dofs (the Lanczos recurrence needs a
     linear preconditioner).  ``operands``: passed to ``matvec(v, operands)``
     and to a callable ``Minv``; without them ``matvec(v)`` is called.
+    ``chunk`` is accepted for parity with the reference, where it bounds
+    the iterations of one device dispatch, and ignored: this loop already
+    runs on the host, so any ``chunk`` gives the same result as none.
 
     Returns the state dict: ``x``, ``phibar`` (the preconditioned residual
     norm, a 0-d tensor) and ``it`` (iterations, an int).  Stops when

@@ -5,18 +5,22 @@ Port of the JAX package's ``models/elasticity.py`` (reference workload
 mu = 1, lambda = pi_1:
 
 * ``ElasticitySolver``: displacement, sigma(u) = 2 eps(u) + pi_1 div(u) I,
-  vector P_k; a matrix-free Jacobi-preconditioned CG;
+  vector P_k; a matrix-free CG, preconditioned by Jacobi or (``mg_meshes``)
+  by a geometric V-cycle on the whole operator (``fem.multigrid``);
 * ``ElasticitySolverUP``: Herrmann displacement-pressure, Taylor-Hood
-  P_{k+1}^2 x P_k, sigma = 2 eps(u) + p I; Jacobi-preconditioned MINRES
-  (``fem.krylov.minres``) on the symmetric quasi-definite system.
+  P_{k+1}^2 x P_k, sigma = 2 eps(u) + p I; MINRES (``fem.krylov.minres``)
+  on the symmetric quasi-definite system, preconditioned by Jacobi or
+  (``mg_meshes``) by a V-cycle on the displacement block and the inverse
+  pressure-mass diagonal.
 
 Each cell's element matrices are formed once on the device; the operator
 action is a gather, a batched product and an ``index_add_``.  The CG loop
 is the port's Poisson CG: a Python loop with the reference's stopping rule
 checked every iteration and its ``maxiter``.  On CUDA, ``index_add_`` sums
 in no fixed order, so results may move at the 1e-16 relative level and the
-iteration count by one against a CPU run.  The reference's multigrid
-preconditioner (``mg_meshes``) is not ported.
+iteration count by one against a CPU run.  The multigrid branches need u
+essential on the whole boundary and a hierarchy whose finest mesh is the
+solver's mesh object.
 """
 
 from __future__ import annotations
@@ -40,11 +44,10 @@ __all__ = ["ElasticitySolver", "ElasticitySolverUP", "stress_row_expr",
            "stress_row_expr_up", "pressure_mismatch_expr"]
 
 
-def _no_mg(mg_meshes):
-    if mg_meshes is not None:
-        raise NotImplementedError(
-            "the multigrid preconditioner (mg_meshes) is not ported; the "
-            "solvers take Jacobi")
+def _whole_boundary(msh, dirichlet_facets):
+    if len(np.setdiff1d(msh.boundary_facets, np.asarray(dirichlet_facets))):
+        raise ValueError(
+            "the MG path assumes u essential on the whole boundary")
 
 
 class _StressRow(Expr):
@@ -192,10 +195,16 @@ class ElasticitySolver:
     def solve(self, f_expr, dirichlet_facets, u_d, tractions=None,
               rtol=1e-12, atol=1e-14, maxiter=None,
               mg_meshes=None) -> Function:
-        """Jacobi-preconditioned CG; ``maxiter`` defaults to the
+        """CG, Jacobi-preconditioned; ``maxiter`` defaults to the
         reference's 30 (sqrt(ndofs) + 100).  ``last_iterations``,
-        ``last_maxiter`` and ``last_residual`` describe the solve."""
-        _no_mg(mg_meshes)
+        ``last_maxiter`` and ``last_residual`` describe the solve.
+
+        ``mg_meshes``: a nested red-refinement hierarchy (finest = the
+        solver's mesh) or a prebuilt ``GeometricMG`` of this operator
+        (its pi_1 must match); a geometric V-cycle on the whole
+        ``2 eps:eps + pi_1 div div`` operator then preconditions the CG,
+        with mesh-independent iteration counts, and ``maxiter`` defaults
+        to 200.  Needs u essential on the whole boundary."""
         V, dev = self.V, self.device
         free = np.ones(self.ndofs, dtype=bool)
         free[_boundary_dofs(V, dirichlet_facets)] = False
@@ -205,11 +214,34 @@ class ElasticitySolver:
         x = torch.where(free, 0.0, ud_fun.x)
         b = self.load_vector(f_expr, tractions)
         r = torch.where(free, b - self.matvec(x), 0.0)
-        Minv = torch.where(self.diag > 0, 1.0 / self.diag, 1.0)
-        if maxiter is None:
-            maxiter = 30 * int(np.sqrt(self.ndofs) + 100)
+        if mg_meshes is not None:
+            from ..fem.multigrid import GeometricMG, vector_eps_tensors
 
-        z = Minv * r
+            _whole_boundary(V.mesh, dirichlet_facets)
+            if isinstance(mg_meshes, GeometricMG):
+                mg = mg_meshes
+            else:
+                if mg_meshes[-1] is not V.mesh:
+                    raise ValueError(
+                        "mg_meshes[-1] must be the solver's mesh")
+                k, p1 = V.degree, self.pi_1
+                mg = GeometricMG(
+                    mg_meshes, k,
+                    lambda m: vector_eps_tensors(m, k, div_coeff=p1),
+                    block_size=2, device=dev)
+            psolve = mg.apply
+            if maxiter is None:
+                maxiter = 200
+        else:
+            Minv = torch.where(self.diag > 0, 1.0 / self.diag, 1.0)
+
+            def psolve(r):
+                return Minv * r
+
+            if maxiter is None:
+                maxiter = 30 * int(np.sqrt(self.ndofs) + 100)
+
+        z = psolve(r)
         p = z
         rz = torch.dot(r, z)
         bf = b * free
@@ -221,7 +253,7 @@ class ElasticitySolver:
             alpha = rz / torch.dot(p, Ap)
             x = x + alpha * p
             r = r - alpha * Ap
-            z = Minv * r
+            z = psolve(r)
             rz_new = torch.dot(r, z)
             p = z + (rz_new / rz) * p
             rz = rz_new
@@ -358,11 +390,17 @@ class ElasticitySolverUP:
 
     def solve(self, f_expr, dirichlet_facets, u_d, rtol=1e-12, atol=1e-14,
               maxiter=None, mg_meshes=None):
-        """Returns (uh, ph).  Jacobi-preconditioned MINRES on both blocks;
+        """Returns (uh, ph).  MINRES, Jacobi-preconditioned on both blocks;
         ``maxiter`` defaults to the reference's 60 (sqrt(ndofs) + 100).
         ``last_iterations``, ``last_maxiter`` and ``last_residual`` (the
-        preconditioned residual estimate) describe the solve."""
-        _no_mg(mg_meshes)
+        preconditioned residual estimate) describe the solve.
+
+        ``mg_meshes``: a nested red-refinement hierarchy (finest = the
+        solver's mesh); a geometric V-cycle then preconditions the
+        displacement block and the pressure keeps its inverse mass
+        diagonal, the norm-equivalent Herrmann preconditioner
+        diag(A_uu, M_p / pi_1), and ``maxiter`` defaults to 400.  Needs u
+        essential on the whole boundary."""
         dev = self.device
         free = np.ones(self.nu + self.np_, dtype=bool)
         free[_boundary_dofs(self.Vu, dirichlet_facets)] = False
@@ -374,9 +412,28 @@ class ElasticitySolverUP:
         b = self.load_vector(f_expr)
         diag_inv = torch.where(self.diag.abs() > 0, 1.0 / self.diag.abs(),
                                1.0)
-        if maxiter is None:
-            maxiter = 60 * int(np.sqrt(self.nu + self.np_) + 100)
-        st = minres(self.matvec, b, x0, diag_inv, free, rtol=rtol, atol=atol,
+        if mg_meshes is not None:
+            from ..fem.multigrid import GeometricMG, vector_eps_tensors
+
+            if mg_meshes[-1] is not self.Vu.mesh:
+                raise ValueError("mg_meshes[-1] must be the solver's mesh")
+            _whole_boundary(self.Vu.mesh, dirichlet_facets)
+            ku, nu = self.Vu.degree, self.nu
+            mg_u = GeometricMG(mg_meshes, ku,
+                               lambda m: vector_eps_tensors(m, ku),
+                               block_size=2, device=dev)
+            dp_inv = diag_inv[nu:]
+
+            def Minv(r, ops=None):
+                return torch.cat([mg_u.apply(r[:nu]), dp_inv * r[nu:]])
+
+            if maxiter is None:
+                maxiter = 400
+        else:
+            Minv = diag_inv
+            if maxiter is None:
+                maxiter = 60 * int(np.sqrt(self.nu + self.np_) + 100)
+        st = minres(self.matvec, b, x0, Minv, free, rtol=rtol, atol=atol,
                     maxiter=maxiter)
         self.last_iterations = st["it"]
         self.last_maxiter = maxiter
