@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--n 500] [--profile] [--k1-sweep]
+    python3 chip_smoke.py [--n 500] [--profile] [--k1-sweep] [--phase22]
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc).  It builds the port's CUDA kernels from ``csrc/`` for
@@ -28,7 +28,9 @@ the stress engine, the elasticity user flow and its committed runs, the
 KKT mode and the reduced formulation, and the adaptive Cook loop; then
 geometric multigrid and Biot poro-elasticity (K1, K2 on the Biot path's
 operands): ``bench.py 500 3 --biot``'s data and engine calls, the Biot
-demo's flow, and the multigrid solvers and perftest series.
+demo's flow, and the multigrid solvers and perftest series; then patch
+sharding over ``torch.distributed`` (K1, K2 on every rank), Gmsh import
+and the ParaView output.
 
 Phases, one line each:
 
@@ -135,14 +137,31 @@ Phases, one line each:
       hierarchy of ``unit_square(8)`` to 1,048,576 cells, and
       ``run_perftest`` for "elasticity" and "biot" (orders 2-4, n0 = 8,
       nrefs = 5), its structural columns held row for row to
-      ``artifacts/Perftest_*.csv``.
+      ``artifacts/Perftest_*.csv``;
+  22. patch sharding and I/O (``parallel.ShardedEqlbEngine``, K1 and K2 on
+      every rank): (a) ``entry.dryrun_multichip``'s four cases, f64, on 2
+      gloo ranks spawned on the one card, each against the single-device
+      engine, with every rank's K1 launches by route and K2 launches, and
+      K1 and K2 against their plain versions on rank 0's operands; (b)
+      phase 15's stress headline split over the same 2 ranks: host set-up
+      and cache seconds, strict ms split into the rank-local solve, the
+      partial combine and the all-reduce, peak memory per rank, the result
+      against phase 15's call, K1 and K2 against their plain versions on
+      rank 0's operands; (c) a one-rank NCCL group, bitwise equal to the
+      single-device engine; (d) ``mesh.read_msh`` on the v2 and v4 texts of
+      ``tests/test_msh_io.py`` with the equilibration on the imported mesh,
+      card against CPU, and the reconstruction flow at n = 64 with its XDMF
+      and VTU written to a temporary directory (the XDMF parsed, its
+      inline data numeric).
 
 Kernel times are CUDA-event means of single launches, each after a write
 of 256 MB that leaves the 50 MB L2 cold.  ``--k1-sweep`` only builds the
 kernels and times K1's tile route against its block route (several
 thread counts) over D and X, the measurement ``k1_plan``'s split rests
-on.  Any failure exits non-zero;
-nothing falls back to the CPU.  The line before the last is a JSON object
+on.  ``--phase22`` only builds the kernels and runs phase 22.
+``--profile`` writes its trace through ``utils.profiling.trace`` to
+``smoke_out/profile``.  Any failure exits non-zero; nothing falls back to
+the CPU.  The line before the last is a JSON object
 with every kernel's launches, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -771,14 +790,13 @@ def phase_main(engine, data, device, profile=False):
         for name, key in ((str(key), key) for key in sorted(engine.buckets))}
 
     if profile:
-        from torch.profiler import (
-            ProfilerActivity, profile as tprofile, record_function,
-        )
+        from torch.profiler import record_function
+
+        from dolfinx_eqlb_tpu_torch.utils import trace
 
         call()
         sync(device)
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
+        with trace("smoke_out/profile") as prof:
             with record_function("strict_window"):
                 call()
                 sync(device)
@@ -792,6 +810,7 @@ def phase_main(engine, data, device, profile=False):
         table = prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=25)
         res["profile_table"] = table
+        res["chrome_trace"] = prof.chrome_trace
     return x, res
 
 
@@ -1935,7 +1954,8 @@ def report_stress(r: dict, nph: int, failures: list) -> None:
                     f"max_rel_err {c['max_rel_err']:.3e}" for c in kc["K1"])
         + f"; K2 ndofs={kc['K2']['ndofs']} bitwise {kc['K2']['bitwise']}")
     log("    detail: " + json.dumps(
-        {key: val for key, val in r.items() if key != "kernel_checks"}))
+        {key: val for key, val in r.items()
+         if key != "kernel_checks"}))
     if r["launches"]["K1"] <= 0 or r["launches"]["K2"] <= 0:
         failures.append(f"stress path skipped a kernel: {r['launches']}")
     check_k1_routes("stress path", r["k1_launches_by_route"],
@@ -2907,6 +2927,425 @@ def report_multigrid(r: dict, nph: int, failures: list) -> None:
     log("    detail: " + json.dumps(r))
 
 
+# --- phase 22: patch sharding and I/O (slice 6) -------------------------------
+
+MSH_TEXTS = "tests/test_msh_io.py"
+SHARD_RANKS = 2
+
+
+def shard_dryrun_rank(rank, world, device, backend, probe):
+    """One rank of phase 22 (a) and (c): ``entry.dryrun_multichip``'s cases
+    (``entry.dryrun_record`` each), with this rank's K1 (by route) and K2
+    launches of the sharded call; with ``probe``, rank 0 also holds K1 and
+    K2 against their plain versions on its own operands (one more call of
+    its part, without the reduce)."""
+    from dolfinx_eqlb_tpu_torch.entry import (
+        DRYRUN_CASES, dryrun_case, dryrun_record,
+    )
+    from dolfinx_eqlb_tpu_torch.parallel import (
+        ShardedEqlbEngine, rank_device,
+    )
+
+    dev = rank_device(device, backend, rank)
+    out = {}
+    for name in DRYRUN_CASES:
+        engine, args, ws, skip, groups = dryrun_case(name, world, dev)
+        sh = ShardedEqlbEngine(engine)
+        reset_launches()
+        x = sh.equilibrate(*args, weak_symmetry=ws, ws_skip_nodes=skip)
+        launches = read_launches()
+        launches["K1_by_route"] = dict(
+            kernel_wrappers()["K1"].launches_by_route)
+        rec = dryrun_record(rank, engine, sh, x, args, ws, skip, groups)
+        rec["launches"] = launches
+        if probe and rank == 0:
+            rec["probe"] = engine_kernel_checks(sh.local, lambda: sh.partial(
+                *args, weak_symmetry=ws, ws_skip_nodes=skip))
+        out[name] = rec
+    return out
+
+
+def stress_shard_rank(rank, world, device, n, reps):
+    """One rank of phase 22 (b): ``bench.py --stress``'s headline (the
+    crossed ``unit_square(n)``, RT2, two f32 stress rows of phase 15's
+    data, chunk ``CHUNK``, ``weak_symmetry=True``) through
+    ``ShardedEqlbEngine`` on this rank's rows: set-up seconds, strict ms
+    of ``reps`` calls (host clock, the ranks started together by a
+    barrier), the same calls split into the rank-local solve, the partial
+    combine and the all-reduce, launches, peak memory; rank 0 also returns
+    the result, and K1 and K2 against their plain versions on its own
+    operands (one more call of its part, without the reduce)."""
+    import torch.distributed as dist
+
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import (
+        EqlbEngine, _full_f32_matmul,
+    )
+    from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
+    from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
+    from dolfinx_eqlb_tpu_torch.mesh import unit_square
+    from dolfinx_eqlb_tpu_torch.parallel import ShardedEqlbEngine
+
+    dev = torch.device(device)
+    torch.cuda.init()  # the memory statistics below need the allocator
+    res = {"rank": rank}
+    t0 = time.perf_counter()
+    msh = unit_square(n)
+    engine = EqlbEngine(FunctionSpace(msh, "RT", 2), build_patches(msh),
+                        dtype=torch.float32, device=dev,
+                        max_patches_per_bucket=CHUNK, pad_to_multiple=world)
+    dp, dr, fk, bv = make_data(msh, 2, 2, seed=0, np_dtype=np.float32)
+    res["host_setup_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sh = ShardedEqlbEngine(engine)
+    sync(dev)
+    res["local_tables_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sh.local.ensure_stress_caches()
+    sync(dev)
+    res["stress_cache_s"] = time.perf_counter() - t0
+    res["patches"], res["rows"] = sh.npatches_local, sh.rows_local
+    dpd = torch.as_tensor(dp, device=dev)
+    drd = torch.as_tensor(dr, device=dev)
+    fkd = torch.as_tensor(fk, device=dev)
+    bvd = torch.as_tensor(bv, device=dev)
+
+    def call():
+        return sh.equilibrate(dpd, drd, fkd, bvd, weak_symmetry=True)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    x = call()
+    sync(dev)
+    res["first_call_s"] = time.perf_counter() - t0
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        x = call()
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["launches"] = read_launches()
+    res["k1_launches_by_route"] = dict(
+        kernel_wrappers()["K1"].launches_by_route)
+    res["calls"] = 1 + reps
+    res["strict_ms"] = times
+    res["strict_ms_median"] = float(np.median(times))
+    loc = sh.local
+    dpT, drT = loc.put_transposed(dp, dr)
+    split = {"local_solve_ms": [], "partial_combine_ms": [],
+             "all_reduce_ms": []}
+    for _ in range(reps):
+        dist.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        with _full_f32_matmul():
+            flat = loc._bucket_solutions(dpT, drT, fkd, bvd, True, None)
+        sync(dev)
+        t1 = time.perf_counter()
+        xp = loc._combine_flat(flat)
+        sync(dev)
+        t2 = time.perf_counter()
+        sh.reduce(xp)
+        sync(dev)
+        t3 = time.perf_counter()
+        for name, (a, b) in (("local_solve_ms", (t0, t1)),
+                             ("partial_combine_ms", (t1, t2)),
+                             ("all_reduce_ms", (t2, t3))):
+            split[name].append((b - a) * 1e3)
+    res["split_ms_median"] = {k: float(np.median(v)) for k, v in split.items()}
+    res["split_equals_call"] = bool(torch.equal(xp, x))
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    if rank == 0:
+        res["x"] = x.cpu()
+        del x, xp, flat
+        res["kernel_checks"] = engine_kernel_checks(loc, lambda: sh.partial(
+            dpd, drd, fkd, bvd, weak_symmetry=True))
+    return res
+
+
+def msh_texts() -> dict:
+    """The Gmsh v2.2 and v4.1 texts of ``tests/test_msh_io.py``, read from
+    its source (the test module itself imports JAX)."""
+    import ast
+
+    tree = ast.parse(repo_file(MSH_TEXTS).read_text())
+    return {node.targets[0].id: ast.literal_eval(node.value)
+            for node in tree.body if isinstance(node, ast.Assign)
+            and getattr(node.targets[0], "id", "") in ("MSH_V2", "MSH_V4")}
+
+
+def imported_mesh_flow(msh, device):
+    """``tests/test_msh_io.py``'s equilibration on an imported mesh: SE,
+    RT2, a linear projected flux with constant divergence."""
+    from dolfinx_eqlb_tpu_torch.eqlb import (
+        FluxEqlbSE, check_divergence_condition,
+    )
+    from dolfinx_eqlb_tpu_torch.fem import (
+        FunctionSpace, expr_from_callable, local_projection,
+    )
+
+    k = 2
+    rhs = local_projection(FunctionSpace(msh, "DG", k - 1),
+                           [lambda x: np.ones(x.shape[:-1])], device=device)
+    proj = local_projection(
+        FunctionSpace(msh, "DG", k - 1, vs=2),
+        [expr_from_callable(lambda x: 0.5 * np.stack([x[..., 0],
+                                                       x[..., 1]], -1),
+                            msh, value_size=2)], device=device)
+    eq = FluxEqlbSE(k, msh, rhs, proj)
+    eq.set_boundary_conditions([msh.boundary_facets], [[]])
+    eq.equilibrate_fluxes()
+    ok = check_divergence_condition(eq.list_flux[0], proj[0], rhs[0])
+    return eq.list_flux[0].x.cpu(), bool(ok)
+
+
+def xdmf_numeric(path) -> dict:
+    """Parse an XDMF file as XML; every inline data item must hold only
+    numeric tokens."""
+    import re
+    import xml.etree.ElementTree as ET
+
+    num = re.compile(r"^-?(\d+(\.\d*)?|\.\d+)([eE][-+]?\d+)?$")
+    root = ET.parse(path).getroot()
+    items = list(root.iter("DataItem"))
+    inline = [it for it in items if it.get("Format") == "XML"]
+    bad = sum(not num.match(tok) for it in inline for tok in it.text.split())
+    return {"items": len(items), "inline_items": len(inline),
+            "non_numeric_tokens": bad,
+            "attributes": sorted(a.get("Name") for a in root.iter("Attribute"))}
+
+
+def phase_io(device, n: int = 64):
+    """Phase 22 (d): ``read_msh`` on the v2 and v4 texts and the
+    equilibration on the imported mesh, card against CPU; the
+    reconstruction flow at n with its XDMF and VTU, written to a
+    temporary directory and checked there."""
+    import os
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    from dolfinx_eqlb_tpu_torch.demos.reconstruction import (
+        solve_and_equilibrate, write_output,
+    )
+    from dolfinx_eqlb_tpu_torch.eqlb import FluxEqlbSE
+    from dolfinx_eqlb_tpu_torch.mesh import read_msh, unit_square
+
+    res = {"msh": {}}
+    for name, text in msh_texts().items():
+        msh, ft, ct = read_msh(text)
+        card, ok_card = imported_mesh_flow(msh, device)
+        cpu, ok_cpu = imported_mesh_flow(msh, "cpu")
+        err = float((card - cpu).abs().max())
+        limit = 1e-11 * max(1.0, float(cpu.abs().max()))
+        res["msh"][name] = dict(
+            cells=msh.num_cells, vertices=msh.num_vertices,
+            facet_tags={int(t): len(v) for t, v in ft.items()},
+            cell_tags={int(t): len(v) for t, v in ct.items()},
+            max_abs_err=err, limit=limit, divergence_ok=ok_card and ok_cpu,
+            ok=(msh.num_cells == 4 and len(ft.get(10, ())) == 1
+                and len(ft.get(20, ())) == 3 and err <= limit
+                and ok_card and ok_cpu))
+    t0 = time.perf_counter()
+    msh = unit_square(n)
+    uh, sp, eq = solve_and_equilibrate(msh, 2, 2, "dirichlet", FluxEqlbSE,
+                                       device=device, verbose=False)
+    res["flow_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as outdir:
+        t0 = time.perf_counter()
+        write_output(outdir, msh, uh, sp, eq)
+        res["write_s"] = time.perf_counter() - t0
+        xd = xdmf_numeric(os.path.join(outdir, "reconstruction.xdmf"))
+        vtu = ET.parse(os.path.join(outdir, "reconstruction.vtu")).getroot()
+        res["bytes"] = {ext: os.path.getsize(os.path.join(
+            outdir, f"reconstruction.{ext}")) for ext in ("xdmf", "vtu")}
+    res["xdmf"] = xd
+    res["vtu_arrays"] = sorted(d.get("Name") for d in vtu.iter("DataArray")
+                               if d.get("Name"))
+    res["cells"] = msh.num_cells
+    res["ok"] = (all(m["ok"] for m in res["msh"].values())
+                 and xd["non_numeric_tokens"] == 0
+                 and xd["attributes"] == ["sigma_R", "sigma_proj", "u"]
+                 and {"u", "sigma_proj", "sigma_R"} <= set(res["vtu_arrays"]))
+    return res
+
+
+def stress_reference(n: int, device) -> torch.Tensor:
+    """Phase 15's single-device call (weak symmetry) on the same data,
+    returned on the host: the reference of phase 22 (b)."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
+    from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
+    from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
+    from dolfinx_eqlb_tpu_torch.mesh import unit_square
+
+    msh = unit_square(n)
+    eng = EqlbEngine(FunctionSpace(msh, "RT", 2), build_patches(msh),
+                     dtype=torch.float32, device=device,
+                     max_patches_per_bucket=CHUNK)
+    dp, dr, fk, bv = make_data(msh, 2, 2, seed=0, np_dtype=np.float32)
+    x = eng.equilibrate(dp, dr, fk, bv, weak_symmetry=True).cpu()
+    del eng
+    torch.cuda.empty_cache()
+    return x
+
+
+def phase_sharding(device, n: int, reps: int = 7) -> dict:
+    """Phase 22: (a) the four dry-run cases of ``entry.dryrun_multichip``,
+    f64, on ``SHARD_RANKS`` gloo ranks on the card, each against the
+    single-device engine, with K1 and K2 on rank 0's operands; (b) the
+    stress headline split over the same ranks (``stress_shard_rank``)
+    against phase 15's call (``stress_reference``), with K1 and K2 on
+    rank 0's operands; (c) a one-rank NCCL group,
+    bitwise against the single-device engine; (d) ``phase_io``.  A part
+    that raises is recorded with its error and the others still run."""
+    import traceback
+
+    from dolfinx_eqlb_tpu_torch.entry import dryrun_check
+    from dolfinx_eqlb_tpu_torch.parallel import spawn_ranks
+
+    res = {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        try:
+            res[name] = fn()
+        except Exception as e:  # report every part, then fail the phase
+            res[name] = {"error": f"{type(e).__name__}: {e}",
+                         "traceback": traceback.format_exc()}
+        res[name]["seconds"] = time.perf_counter() - t0
+
+    def dryrun(ranks, backend, probe):
+        return dryrun_check(spawn_ranks(shard_dryrun_rank, ranks, backend,
+                                        args=(str(device), backend, probe)))
+
+    def full_width():
+        x_stress = stress_reference(n, device)
+        ranks = spawn_ranks(stress_shard_rank, SHARD_RANKS, "gloo",
+                            args=(str(device), n, reps))
+        x = ranks[0].pop("x")
+        scale = float(x_stress.abs().max())
+        out = {"ranks": ranks, "ndofs": int(x.shape[1]),
+               "kernel_checks": ranks[0].pop("kernel_checks"),
+               "max_abs_err_vs_single": float((x - x_stress).abs().max()),
+               "err_limit": 1e-3 * scale,
+               "finite": bool(torch.isfinite(x).all())}
+        out["ok"] = (out["finite"] and tuple(x.shape) == tuple(x_stress.shape)
+                     and out["max_abs_err_vs_single"] <= out["err_limit"]
+                     and all(r["split_equals_call"] for r in ranks))
+        return out
+
+    def nccl_one_rank():
+        rep = dryrun(1, "nccl", False)
+        cases = {name: {"bitwise": bool(np.array_equal(r["x"],
+                                                       r["x_single"])),
+                        "max_abs_err": r["max_abs_err"],
+                        "launches": r["ranks"][0]["launches"]}
+                 for name, r in rep.items()}
+        return {"cases": cases,
+                "ok": all(c["bitwise"] for c in cases.values())}
+
+    part("dryrun", lambda: {"cases": {
+        name: {key: r[key] for key in ("max_abs_err", "limit", "ranks")}
+        for name, r in dryrun(SHARD_RANKS, "gloo", True).items()}})
+    part("full_width", full_width)
+    part("nccl", nccl_one_rank)
+    part("io", lambda: phase_io(device))
+    return res
+
+
+def report_sharding(r: dict, nph: int, failures: list) -> None:
+    for name, p in r.items():
+        if "error" in p:
+            log(f"[22/{nph}] {name}: FAILED {p['error']}\n{p['traceback']}")
+            failures.append(f"phase 22 {name}: {p['error']}")
+    d = r["dryrun"]
+    if "cases" in d:
+        for name, c in d["cases"].items():
+            kc = c["ranks"][0]["probe"]
+            k1_ok = all(k["ok"] for k in kc["K1"]) and kc["K2"]["ok"]
+            log(f"[22/{nph}] (a) dryrun {name}, {SHARD_RANKS} gloo ranks on "
+                f"the card, f64: max|x - single device| "
+                f"{c['max_abs_err']:.3e} (limit {c['limit']:.3e}); per rank "
+                + "; ".join(f"rank {i}: {rk['patches']} patches / "
+                            f"{rk['rows']} rows, K1 {rk['launches']['K1']} "
+                            f"{rk['launches']['K1_by_route']}, K2 "
+                            f"{rk['launches']['K2']}"
+                            for i, rk in enumerate(c["ranks"]))
+                + "; rank 0's operands: K1 " + ", ".join(
+                    f"D={k['D']} R={k['R']} X={k['X']} rel "
+                    f"{k['max_rel_err']:.1e}" for k in kc["K1"])
+                + f", K2 bitwise {kc['K2']['bitwise']}")
+            if not k1_ok:
+                failures.append(f"phase 22 dryrun {name}: K1 or K2 "
+                                "disagrees with its plain version")
+            if any(rk["launches"]["K1"] <= 0 or rk["launches"]["K2"] <= 0
+                   for rk in c["ranks"]):
+                failures.append(f"phase 22 dryrun {name}: a rank skipped a "
+                                "kernel")
+        log(f"    (a) {d['seconds']:.1f} s")
+    f = r["full_width"]
+    if "ranks" in f:
+        for rk in f["ranks"]:
+            s = rk["split_ms_median"]
+            log(f"[22/{nph}] (b) stress headline sharded, rank "
+                f"{rk['rank']} of {SHARD_RANKS} (gloo, one card): "
+                f"{rk['patches']} patches / {rk['rows']} rows; host set-up "
+                f"{rk['host_setup_s']:.2f} s, local tables "
+                f"{rk['local_tables_s']:.3f} s, stress caches "
+                f"{rk['stress_cache_s']:.3f} s; first call "
+                f"{rk['first_call_s']:.3f} s; strict "
+                f"{rk['strict_ms_median']:.3f} ms median of "
+                f"{len(rk['strict_ms'])} ({', '.join(f'{t:.2f}' for t in rk['strict_ms'])}); split: local solve "
+                f"{s['local_solve_ms']:.3f}, partial combine "
+                f"{s['partial_combine_ms']:.3f}, all-reduce "
+                f"{s['all_reduce_ms']:.3f} ms; launches {rk['launches']} "
+                f"over {rk['calls']} calls, K1 by route "
+                f"{rk['k1_launches_by_route']}; peak "
+                f"{rk['peak_mem_gib']:.2f} GiB")
+            if rk["launches"]["K1"] <= 0 or rk["launches"]["K2"] <= 0:
+                failures.append("phase 22 full width: a rank skipped a "
+                                "kernel")
+        kc = f["kernel_checks"]
+        log(f"    (b) {f['ndofs']} dofs; max|x - phase 15| "
+            f"{f['max_abs_err_vs_single']:.3e} (limit {f['err_limit']:.3e})"
+            f"; rank 0's operands: K1 " + ", ".join(
+                f"D={k['D']} R={k['R']} X={k['X']} rel "
+                f"{k['max_rel_err']:.1e}" for k in kc["K1"])
+            + f", K2 ndofs={kc['K2']['ndofs']} bitwise "
+            f"{kc['K2']['bitwise']}; {f['seconds']:.1f} s"
+            f"{'' if f['ok'] else '  FAILED'}")
+        if not f["ok"]:
+            failures.append("phase 22 full width disagrees with phase 15")
+        if not all(k["ok"] for k in kc["K1"]) or not kc["K2"]["ok"]:
+            failures.append("phase 22 full width: K1 or K2 disagrees with "
+                            "its plain version on rank 0's operands")
+    c = r["nccl"]
+    if "cases" in c:
+        log(f"[22/{nph}] (c) one-rank NCCL group: bitwise equal to the "
+            f"single-device engine " + ", ".join(
+                f"{name} {v['bitwise']}" for name, v in c["cases"].items())
+            + f"; {c['seconds']:.1f} s{'' if c['ok'] else '  FAILED'}")
+        if not c["ok"]:
+            failures.append("phase 22 NCCL one-rank group is not bitwise "
+                            "equal to the single-device engine")
+    io = r["io"]
+    if "msh" in io:
+        log(f"[22/{nph}] (d) read_msh "
+            + ", ".join(f"{name}: {m['cells']} cells, facet tags "
+                        f"{m['facet_tags']}, card vs CPU "
+                        f"{m['max_abs_err']:.1e} (limit {m['limit']:.1e})"
+                        for name, m in io["msh"].items())
+            + f"; reconstruction n={int(np.sqrt(io['cells'] // 4))} "
+            f"({io['cells']} cells) flow {io['flow_s']:.2f} s, output "
+            f"{io['write_s']:.2f} s, bytes {io['bytes']}, XDMF "
+            f"{io['xdmf']}; {io['seconds']:.1f} s"
+            f"{'' if io['ok'] else '  FAILED'}")
+        if not io["ok"]:
+            failures.append("phase 22 I/O check failed")
+    log("    detail: " + json.dumps(r))
+
+
 def kernel_entry(name, source, replaces, launches, row, errs):
     """One entry of the "kernels" line from a phase row."""
     return {"name": name, "route": "cuda", "source": source,
@@ -2929,6 +3368,9 @@ def main(argv=None) -> int:
     ap.add_argument("--k1-sweep", action="store_true",
                     help="only build the kernels and time K1's block-route "
                     "variants beside the tile and global routes")
+    ap.add_argument("--phase22", action="store_true",
+                    help="only build the kernels and run phase 22 (patch "
+                    "sharding and I/O), against its own stress reference")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2948,7 +3390,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     failures = []
-    nph = 21
+    nph = 22
 
     card = card_line()
     log(card)
@@ -2971,6 +3413,12 @@ def main(argv=None) -> int:
         loops = phase_k1_loop_plans(device)
         print(json.dumps({"k1_sweep": rows, "loops": loops}), flush=True)
         return 0 if all(r["ok"] for r in rows) else 1
+    if args.phase22:
+        shard = phase_sharding(device, args.n)
+        report_sharding(shard, nph, failures)
+        for f in failures:
+            print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
+        return 1 if failures else 0
 
     k = 2
     t0 = time.perf_counter()
@@ -3180,6 +3628,11 @@ def main(argv=None) -> int:
     mgr = phase_multigrid(device)
     marks.append(("21", time.perf_counter()))
     report_multigrid(mgr, nph, failures)
+    torch.cuda.empty_cache()
+
+    shard = phase_sharding(device, args.n)
+    marks.append(("22", time.perf_counter()))
+    report_sharding(shard, nph, failures)
 
     log("seconds by phase (host clock, each to the end of its run): "
         + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t) in
@@ -3219,6 +3672,15 @@ def main(argv=None) -> int:
     paths["biot_bench_f32"] = biot["flux"]["launches"]
     paths["biot_bench_ws_f32"] = biot["ws"]["launches"]
     paths["biot_flow_f64"] = bflow["launches"]
+    # slice 6: patch sharding, every rank's launches summed
+    dry_cases = shard["dryrun"]["cases"]
+    paths["sharded_dryrun_f64"] = {
+        kname: sum(rk["launches"].get(kname, 0) for c in dry_cases.values()
+                   for rk in c["ranks"]) for kname in kernel_wrappers()}
+    paths["sharded_stress_f32"] = {
+        kname: sum(rk["launches"][kname]
+                   for rk in shard["full_width"]["ranks"])
+        for kname in kernel_wrappers()}
 
     def total(kname):
         return sum(p[kname] for p in paths.values())
@@ -3242,6 +3704,10 @@ def main(argv=None) -> int:
     k3_stress_checks = (skkt["k3_checks"]
                         + skkt["reduced"]["boundary"]["k3_checks"])
     k3_stress_errs = [c["max_abs_err"] for c in k3_stress_checks]
+    # phase 22 (a), (b): K1 and K2 on rank 0's operands of each dry-run
+    # case and of the sharded stress headline
+    flux_checks += [c["ranks"][0]["probe"] for c in dry_cases.values()]
+    flux_checks.append(shard["full_width"]["kernel_checks"])
     k1_errs = ([r["max_abs_err"] for r in k1]
                + [c["max_abs_err"] for kc in flux_checks for c in kc["K1"]])
     k2_errs = ([r["max_abs_err"] for r in k2]
@@ -3290,7 +3756,10 @@ def main(argv=None) -> int:
             "cook_loop_demo": cook["demo"]["k1_launches_by_route"],
             "biot_bench_f32": biot["flux"]["k1_launches_by_route"],
             "biot_bench_ws_f32": biot["ws"]["k1_launches_by_route"],
-            "biot_flow_f64": bflow["k1_launches_by_route"]},
+            "biot_flow_f64": bflow["k1_launches_by_route"],
+            **{f"sharded_stress_f32_rank{rk['rank']}":
+               rk["k1_launches_by_route"]
+               for rk in shard["full_width"]["ranks"]}},
         lshape_last_step_shapes=[
             {key: c[key] for key in ("D", "R", "X", "route", "ms",
                                      "plain_ms", "library_ms", "bound_ms",

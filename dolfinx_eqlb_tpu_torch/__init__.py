@@ -3,13 +3,14 @@
 The JAX package ``dolfinx_eqlb_tpu`` is the reference; this package grows
 beside it, module by module, with the same layout (``elements/``, ``mesh/``,
 ``native/``, ``fem/``, ``eqlb/``, ``elmtlib/``, ``models/``,
-``estimation/``, ``ops/``; the demos in ``demos/``).
+``estimation/``, ``ops/``, ``parallel/``, ``utils/``; the demos in
+``demos/``, the entry points in ``entry``).
 Host precompute (mesh topology, patch extraction, dof tables) is NumPy
 copied from the reference; device stages are eager PyTorch, and every TPU
 kernel on the ported path is a hand-written CUDA kernel for Hopper
 (``csrc/``, wrapped in ``ops/``) with a plain PyTorch version beside it.
 
-Ported so far:
+Ported:
 
 * the batched equilibration engine, ``eqlb.engine.EqlbEngine.equilibrate``
   (semi-explicit, KKT and mixed-precision paths);
@@ -29,9 +30,19 @@ Ported so far:
   ``eqlb.korn``), ``models.elasticity`` (``ElasticitySolver``,
   ``ElasticitySolverUP`` on ``fem.krylov.minres``),
   ``estimation.estimate_elasticity``, ``mesh.cook_membrane`` and the demos
-  ``demos.elasticity`` and ``demos.cook_adaptive``.
+  ``demos.elasticity`` and ``demos.cook_adaptive``;
+* geometric multigrid and Biot poro-elasticity: ``fem.multigrid``
+  (``mesh_hierarchy``, ``GeometricMG``), the multigrid branches of the
+  elasticity solvers, ``models.biot`` and ``demos.biot``;
+* patch sharding over ``torch.distributed``:
+  ``parallel.ShardedEqlbEngine`` (with ``EqlbEngine(pad_to_multiple=)``),
+  ``parallel.spawn_ranks`` and the entry points ``entry.entry`` /
+  ``entry.dryrun_multichip``;
+* tooling: ``mesh.read_msh`` (Gmsh import), ``utils`` (``run_perftest``,
+  ``sync`` / ``timed`` / ``trace``, ``write_vtu`` / ``write_xdmf`` /
+  ``flux_cell_values``).
 
-Not yet: multigrid and the Biot model, sharding, the I/O utilities.
+Not ported: the JAX package's ``bench.py`` (the port has no bench yet).
 
 Entry points run on the CUDA card by default and raise without one; pass
 ``device="cpu"`` for the CPU.  Nothing here imports jax.
@@ -39,4 +50,7 @@ Entry points run on the CUDA card by default and raise without one; pass
 
 __version__ = "0.1.0"
 
-from . import elements, mesh, fem, eqlb, elmtlib, models, estimation, ops  # noqa: F401
+from . import (  # noqa: F401
+    elements, mesh, fem, eqlb, elmtlib, models, estimation, ops, parallel,
+    utils,
+)

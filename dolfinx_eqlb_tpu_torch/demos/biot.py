@@ -7,8 +7,9 @@ red-refinement hierarchy (``models.biot.BiotMG``), gives three fields
 that one ``FluxEqlbSE(..., equilibrate_stress=True)`` call equilibrates
 together: two weakly symmetric (negated total) stress rows and the Darcy
 flux.  Prints the divergence residual and the H(div) jump check of each
-field and the weak-symmetry check of the stress rows, and writes them as
-CSV (no XDMF).
+field and the weak-symmetry check of the stress rows, writes them as CSV,
+and writes the two pressures at the vertices as ``biot_pressure.xdmf``
+(the reference demo's output).
 
 Run:  python -m dolfinx_eqlb_tpu_torch.demos.biot [--n 16] [--order 2]
       [--outfile F.csv] [--device cpu]
@@ -32,6 +33,7 @@ from ..fem.multigrid import mesh_hierarchy
 from ..fem.spaces import resolve_device
 from ..mesh import unit_square
 from ..models.biot import BiotSolverUPP, biot_fields
+from ..utils.io import write_xdmf
 from ._stages import Stages
 
 __all__ = ["f_body", "g_flow", "run", "CSV_HEADER"]
@@ -150,13 +152,20 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     a = p.parse_args(argv)
-    rows = run(a.n, a.order, device=a.device)
+    info = {}
+    rows = run(a.n, a.order, device=a.device, info=info)
     out = a.outfile or f"Biot_n{a.n}_order{a.order}.csv"
     with open(out, "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(CSV_HEADER)
         w.writerows(rows)
     print(f"checks written to {out}")
+    # the pressures at the vertices: P-space dofs 0 ... nv - 1
+    msh = info["meshes"][-1]
+    _, p_x, pt_x = info["x"]
+    nv = msh.num_vertices
+    write_xdmf("biot_pressure.xdmf", msh, {"p": p_x[:nv], "pt": pt_x[:nv]})
+    print("pressures written to biot_pressure.xdmf")
 
 
 if __name__ == "__main__":

@@ -7,12 +7,17 @@ equilibrate (SE or EV), check the equilibration conditions.
 
 Run:  python -m dolfinx_eqlb_tpu_torch.demos.reconstruction [--eqlb SE|EV]
       [--degree k] [--bc dirichlet|neumann_hom|neumann_inhom] [--n 10]
-      [--device cpu]
+      [--outdir DIR] [--device cpu]
+
+``--outdir`` writes ``reconstruction.xdmf`` and ``reconstruction.vtu``
+(the primal solution at the vertices, the projected and the
+reconstructed flux at the cell midpoints) for ParaView.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -25,11 +30,14 @@ from ..eqlb import (
     fluxbc,
 )
 from ..fem import FunctionSpace, grad, local_projection, project_facet_trace
+from ..fem.expressions import as_expr
 from ..fem.spaces import resolve_device
 from ..mesh import permute_vertices, unit_square
 from ..models import PoissonSolver
+from ..utils.io import flux_cell_values, write_vtu, write_xdmf
 
-__all__ = ["exact_solution", "rhs", "ux", "solve_and_equilibrate"]
+__all__ = ["exact_solution", "rhs", "ux", "solve_and_equilibrate",
+           "write_output"]
 
 
 def exact_solution(x):
@@ -106,6 +114,31 @@ def solve_and_equilibrate(msh, order_prime, order_eqlb, bc_type, Equilibrator,
     return uh, sigma_proj[0], eq
 
 
+def write_output(outdir, msh, uh, sigma_proj, eq):
+    """XDMF/VTU export for ParaView (reference
+    ``demo/poisson/demo_reconstruction.py:534-540``): the primal solution
+    at the vertices (corner values, averaged over the cells that share a
+    vertex), the projected and the reconstructed flux at the cell
+    midpoints."""
+    os.makedirs(outdir, exist_ok=True)
+    corners = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
+    uv = as_expr(uh).evaluate(corners).cpu().numpy()  # (nc, 3, 1)
+    num = np.zeros(msh.num_vertices)
+    cnt = np.zeros(msh.num_vertices)
+    np.add.at(num, msh.cells.reshape(-1), uv.reshape(-1))
+    np.add.at(cnt, msh.cells.reshape(-1), 1.0)
+    point_data = {"u": num / np.maximum(cnt, 1.0)}
+    cell_data = {
+        "sigma_proj": flux_cell_values(sigma_proj),
+        "sigma_R": flux_cell_values(eq.list_flux[0], sigma_proj),
+    }
+    write_xdmf(os.path.join(outdir, "reconstruction.xdmf"), msh,
+               point_data, cell_data)
+    write_vtu(os.path.join(outdir, "reconstruction.vtu"), msh,
+              point_data, cell_data)
+    print(f"ParaView output written to {outdir}/reconstruction.{{xdmf,vtu}}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--eqlb", default="SE", choices=["SE", "EV"])
@@ -115,6 +148,8 @@ def main(argv=None):
                    choices=["dirichlet", "neumann_hom", "neumann_inhom"])
     p.add_argument("--n", type=int, default=10)
     p.add_argument("--reversed-mesh", action="store_true")
+    p.add_argument("--outdir", default=None,
+                   help="write XDMF/VTU ParaView output to this directory")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     a = p.parse_args(argv)
@@ -123,8 +158,10 @@ def main(argv=None):
     if a.reversed_mesh:
         msh = permute_vertices(msh, seed=1)
     Eq = FluxEqlbSE if a.eqlb == "SE" else FluxEqlbEV
-    solve_and_equilibrate(msh, a.order_prime, a.degree, a.bc, Eq,
-                          device=a.device)
+    uh, sp, eq = solve_and_equilibrate(msh, a.order_prime, a.degree, a.bc,
+                                       Eq, device=a.device)
+    if a.outdir:
+        write_output(a.outdir, msh, uh, sp, eq)
 
 
 if __name__ == "__main__":

@@ -37,10 +37,12 @@ reference's ``dev`` / ``refd``; it has no parameters.  Everything runs
 eagerly.  Left out on purpose, because they only served the TPU: the
 fusion fences, the trailing 128-lane NaN-guard pad of every bucket, the
 lane-packed / paired combine layouts, the [hi | lo] f32 load source of the
-double-single route and the compile-cache machinery.  Chunks are not
-padded, so a bucket's tables hold only real patches; tables taken from the
-reference engine (``from_host_tables``) may carry pad rows, whose
-``gdofs == ndofs`` keeps them out of the combine.
+double-single route and the compile-cache machinery.  A bucket's tables
+hold only real patches unless ``pad_to_multiple`` asks for pad rows (for
+an even split over ranks, ``parallel.ShardedEqlbEngine``); tables taken
+from the reference engine (``from_host_tables``) may carry pad rows too.
+A pad row repeats the last patch with ``gdofs == ndofs``, which keeps it
+out of the combine.
 """
 
 from __future__ import annotations
@@ -155,6 +157,29 @@ def k3_takes(D: int) -> bool:
     return D * D * 128 * 4 * 2 < 12 * 2**20
 
 
+# per-patch host tables: the rows that ``_pad_patch_axis`` repeats
+_PER_PATCH = ("perm", "signs", "gdofs", "lv_hats", "J", "detJ", "K",
+              "z_is_lo", "bspokes", "cells", "lnode", "gamma", "cumalpha",
+              "combo")
+
+
+def _pad_patch_axis(t: dict, b: PatchBucket, m: int, ndofs: int) -> None:
+    """Pad bucket ``b``'s per-patch tables ``t`` in place up to the next
+    multiple of ``m`` rows, and no further: pad rows repeat the last patch
+    and get ``gdofs = ndofs``, so they are solved and never combined (the
+    reference's ``pad_to_multiple`` without its 128-row safety tile)."""
+    P = b.npatches
+    pad = -P % m
+    if not pad:
+        return
+    t["cells"], t["lnode"] = b.cells, b.lnode
+    for name in _PER_PATCH:
+        if name in t:
+            t[name] = np.concatenate(
+                [t[name], np.repeat(t[name][-1:], pad, axis=0)])
+    t["gdofs"][P:] = ndofs
+
+
 _MODES = ("semiexplicit", "kkt")
 _SOLVERS = ("kernel", "torch", "kernel_mixed")
 _COMBINES = ("gather", "ds")
@@ -188,11 +213,16 @@ class EqlbEngine:
         device=None,
         max_patches_per_bucket: int | None = None,
         pad_quantize: float | None = None,
+        pad_to_multiple: int | None = None,
     ):
         """``dtype``: compute precision of the patch solves (f64 default).
         ``device``: the CUDA card by default; ``"cpu"`` runs the kernels'
         plain versions.  ``max_patches_per_bucket``: split larger buckets
-        into chunks of at most this many patches.  ``pad_quantize`` is
+        into chunks of at most this many patches.  ``pad_to_multiple``:
+        pad every bucket's (chunk's) patch axis up to the next multiple of
+        this, so that it splits evenly over that many ranks
+        (``parallel.ShardedEqlbEngine``); pad rows never reach the
+        result.  ``pad_quantize`` is
         accepted for parity with the reference's signature and ignored:
         it rounds bucket shapes up so a compile cache recurs, and nothing
         here is compiled per shape."""
@@ -222,24 +252,32 @@ class EqlbEngine:
                 fv = msh.facet_vertices[b.spokes[:, [0, -1]].astype(np.int64)]
                 t["z_is_lo"] = fv[..., 0] == b.nodes[:, None]  # (P, 2)
                 t["bspokes"] = b.spokes[:, [0, -1]].astype(np.int64)  # (P, 2)
+            if pad_to_multiple:
+                _pad_patch_axis(t, b, pad_to_multiple, V_flux.ndofs)
             tables[key] = t
         self._setup(V_flux, buckets, tables, statics, reference_tensors(k),
                     dtype, device)
 
     @classmethod
     def from_host_tables(cls, V_flux, buckets, tables, se_static, ref,
-                         dtype: torch.dtype = torch.float64, device=None):
+                         dtype: torch.dtype = torch.float64, device=None,
+                         partial: bool = False):
         """Engine over given host state — the reference engine's
         ``buckets``, ``tables``, ``se_static`` and ``ref`` (plain NumPy) —
         so a parity failure can be pinned on the host tables or on the
         device stages.  Pad rows in the tables (``gdofs == ndofs``) are
-        solved and never combined."""
+        solved and never combined; a bucket's first ``npatches`` rows are
+        its real patches.  ``partial``: the tables hold only some of the
+        mesh's patches (one rank's rows of a sharded engine), so the
+        combine gives each dof the sum of the contributors present."""
         device = resolve_device(device, "EqlbEngine")
         eng = cls.__new__(cls)
-        eng._setup(V_flux, buckets, tables, se_static, ref, dtype, device)
+        eng._setup(V_flux, buckets, tables, se_static, ref, dtype, device,
+                   partial)
         return eng
 
-    def _setup(self, V_flux, buckets, tables, statics, ref, dtype, device):
+    def _setup(self, V_flux, buckets, tables, statics, ref, dtype, device,
+               partial=False):
         if dtype not in _NP_DTYPE:
             raise ValueError(f"unsupported dtype {dtype}")
         self.V = V_flux
@@ -255,7 +293,7 @@ class EqlbEngine:
         self.solver = "kernel"
         self.mixed_refine_steps = 1
         self.combine = "gather"
-        self._build_combine_table()
+        self._build_combine_table(partial)
         self._dev = None
         self._refd = None
         self._kdev = None
@@ -269,12 +307,14 @@ class EqlbEngine:
         # call (``stress.weak_symmetry_bucket_bl``)
         self.ws_sing = {}
 
-    def _build_combine_table(self):
+    def _build_combine_table(self, partial=False):
         """Gather-based global accumulation: every global dof has at most 3
         contributors (2 patches per facet dof, 3 per cell dof).  src[d, c]
         is the flat position of contributor c in the concatenated flux-major
         bucket solutions (position off + f * P + p); absent ones point at
-        the zero pad slot ``total`` just past the last bucket."""
+        the zero pad slot ``total`` just past the last bucket.  Unless
+        ``partial`` (the tables hold only some of the mesh's patches, one
+        rank's rows), every dof must have all its contributors."""
         ndofs = self.V.ndofs
         total = sum(int(np.prod(t["gdofs"].shape)) for t in self.tables.values())
         from .. import native
@@ -309,7 +349,7 @@ class EqlbEngine:
         nfk = self.mesh.num_facets * self.k
         if not np.all(src[:nfk, 2] == total):
             raise RuntimeError("facet dof with 3 contributors")
-        if (cur[:nfk] != 2).any() or (cur[nfk:] != 3).any():
+        if not partial and ((cur[:nfk] != 2).any() or (cur[nfk:] != 3).any()):
             raise RuntimeError("dof missing a patch contribution")
         self._flat_len = total
         self._nfk = nfk
@@ -483,7 +523,7 @@ class EqlbEngine:
                                device=self.device)
 
     def equilibrate(self, sigma_proj_dofs, rhs_dofs, facet_kind, bvals,
-                    weak_symmetry=False, transposed_inputs=False,
+                    weak_symmetry=False, fuse=None, transposed_inputs=False,
                     ws_skip_nodes=None):
         """Solve all patch problems; returns global RT dof vectors
         (n_rhs, ndofs_flux) on the engine's device.
@@ -502,6 +542,12 @@ class EqlbEngine:
           weak_symmetry:  treat rows 0, 1 as stress rows and apply the
                           patch-wise weak-symmetry correction before the
                           combine (the reference's FluxEqlbSE stress path)
+          fuse:           accepted for the reference's signature: there it
+                          picks one fused program (True) or one per bucket
+                          (False).  Eager PyTorch always dispatches per
+                          bucket; ``fuse=False`` keeps the reference's two
+                          refusals (``transposed_inputs``,
+                          ``ws_skip_nodes``)
           transposed_inputs: the first two come from ``put_transposed``
                              (semi-explicit mode only)
           ws_skip_nodes:  vertices whose patches get no per-patch
@@ -515,6 +561,11 @@ class EqlbEngine:
             raise ValueError(
                 "transposed_inputs=True needs mode='semiexplicit': the KKT "
                 "mode reads the batch-major data")
+        if transposed_inputs and fuse is False:
+            raise ValueError(
+                "transposed_inputs=True requires the fused semi-explicit "
+                "path (mode='semiexplicit', fuse=True): the batch-major "
+                "fallback would silently mis-gather batch-last arrays")
         fk = self._input(facet_kind)
         bv = self._input(bvals, self.dtype)
         if weak_symmetry and fk.shape[0] < 2:
@@ -522,9 +573,17 @@ class EqlbEngine:
         ws_skip = None
         if (weak_symmetry and ws_skip_nodes is not None
                 and len(ws_skip_nodes)):
-            ws_skip = {key: torch.as_tensor(np.isin(b.nodes, ws_skip_nodes),
-                                            device=self.device)
-                       for key, b in self.buckets.items()}
+            if fuse is False:
+                raise ValueError(
+                    "fuse=False does not support ws_skip_nodes (grouped "
+                    "deficient patches): the unfused path would solve the "
+                    "singular per-patch weak-symmetry systems anyway")
+            # one entry per table row: pad rows follow the real patches
+            ws_skip = {}
+            for key, b in self.buckets.items():
+                m = np.zeros(self.tables[key]["gdofs"].shape[0], dtype=bool)
+                m[:b.npatches] = np.isin(b.nodes, ws_skip_nodes)
+                ws_skip[key] = torch.as_tensor(m, device=self.device)
         with _full_f32_matmul():
             if self.mode == "kkt":
                 dp = self._input(sigma_proj_dofs, self.dtype)

@@ -28,8 +28,8 @@ import numpy as np
 from ..fem.spaces import FunctionSpace
 from ..mesh.topology import TriMesh
 
-__all__ = ["PatchBucket", "build_patches", "deficient_stress_vertices",
-           "refine_for_stress"]
+__all__ = ["PatchBucket", "build_patches", "build_patches_reference",
+           "deficient_stress_vertices", "refine_for_stress"]
 
 
 @dataclass
@@ -52,11 +52,104 @@ class PatchBucket:
         return self.ncells + (1 if self.is_boundary else 0)
 
 
+def _walk_patch(msh: TriMesh, z: int):
+    """Order the cells of vertex z's patch along the spoke-facet walk.
+
+    Returns (cells, lnode, spokes, entry_loc, exit_loc); for an internal
+    patch spokes has length n and the walk is cyclic (cell i sits between
+    spoke i and spoke (i+1) % n); boundary patches start and end at the two
+    boundary spokes (length n+1).
+    """
+    cells = msh.vertex_cells(z)
+    n = len(cells)
+    # spoke facets of each cell: the two local edges containing z
+    # (local edge i is opposite local vertex i)
+    lnode = np.array(
+        [int(np.where(msh.cells[c] == z)[0][0]) for c in cells], dtype=np.int32
+    )
+    spk = {}  # facet -> list of (cell position, local facet id)
+    for i, c in enumerate(cells):
+        for le in ((lnode[i] + 1) % 3, (lnode[i] + 2) % 3):
+            f = int(msh.cell_facets[c, le])
+            spk.setdefault(f, []).append((i, le))
+
+    boundary_spokes = [f for f, adj in spk.items() if len(adj) == 1]
+    if boundary_spokes:
+        if len(boundary_spokes) != 2:
+            raise ValueError(
+                f"patch around vertex {z} is not simply connected "
+                f"({len(boundary_spokes)} boundary spokes)"
+            )
+        start_f = min(boundary_spokes)
+    else:
+        start_f = min(spk.keys())
+
+    order, entry, exit_, spokes = [], [], [], [start_f]
+    cur_f = start_f
+    prev_cell = -1
+    for _ in range(n):
+        cand = [ic for ic, _ in spk[cur_f] if ic != prev_cell and ic not in order]
+        ic = cand[0]
+        les = {le for jc, le in spk[cur_f] if jc == ic}
+        e_in = les.pop()
+        # exit spoke: the cell's other z-edge
+        other = [
+            (le, int(msh.cell_facets[cells[ic], le]))
+            for le in ((lnode[ic] + 1) % 3, (lnode[ic] + 2) % 3)
+            if le != e_in
+        ]
+        e_out, f_out = other[0]
+        order.append(ic)
+        entry.append(e_in)
+        exit_.append(e_out)
+        spokes.append(f_out)
+        prev_cell = ic
+        cur_f = f_out
+    if not boundary_spokes:
+        assert spokes[-1] == spokes[0], (z, spokes)
+        spokes = spokes[:-1]
+    return (
+        cells[order],
+        lnode[order],
+        np.array(spokes, dtype=np.int32),
+        np.array(entry, dtype=np.int32),
+        np.array(exit_, dtype=np.int32),
+    )
+
+
+def build_patches_reference(msh: TriMesh) -> dict[tuple[int, bool], PatchBucket]:
+    """Per-vertex Python walk (reference implementation, used for
+    cross-checking the vectorized builder)."""
+    groups: dict[tuple[int, bool], list] = {}
+    for z in range(msh.num_vertices):
+        cells, lnode, spokes, entry, exit_ = _walk_patch(msh, z)
+        key = (len(cells), bool(msh.is_boundary_vertex[z]))
+        groups.setdefault(key, []).append((z, cells, lnode, spokes, entry, exit_))
+
+    out = {}
+    for key, items in groups.items():
+        n, is_b = key
+        out[key] = PatchBucket(
+            ncells=n,
+            is_boundary=is_b,
+            nodes=np.array([it[0] for it in items], dtype=np.int32),
+            cells=np.stack([it[1] for it in items]).astype(np.int32),
+            lnode=np.stack([it[2] for it in items]).astype(np.int32),
+            spokes=np.stack([it[3] for it in items]).astype(np.int32),
+            entry_loc=np.stack([it[4] for it in items]).astype(np.int32),
+            exit_loc=np.stack([it[5] for it in items]).astype(np.int32),
+        )
+    return out
+
+
 def build_patches(msh: TriMesh) -> dict[tuple[int, bool], PatchBucket]:
     """Vectorized patch extraction: all vertices walk their spoke fans
     simultaneously, so million-cell meshes precompute in seconds.  Uses the
     native C++ walker (``native``) when available, else the
     NumPy lock-step walk below.
+
+    Same output as :func:`build_patches_reference` up to the (irrelevant)
+    walk direction of interior patches.
     """
     nv = msh.num_vertices
     counts = (msh.v2c_offsets[1:] - msh.v2c_offsets[:-1]).astype(np.int64)

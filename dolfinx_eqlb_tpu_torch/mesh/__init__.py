@@ -8,3 +8,4 @@ from .generators import (  # noqa: F401
     cook_membrane,
 )
 from .refine import refine_uniform, refine_marked, refine_facets  # noqa: F401
+from .msh_io import read_msh  # noqa: F401

@@ -15,6 +15,8 @@ f64 on the CPU:
   set-ups on the same meshes, its CSV header the reference's columns, and
   its times finite."""
 
+import xml.etree.ElementTree as ET
+
 import numpy as np
 import pytest
 import torch
@@ -122,6 +124,9 @@ def test_demo_main_on_cpu(tmp_path, monkeypatch, capsys):
         field, err, jump, wsym = row.split(",")
         assert float(err) < 1e-8 and jump == "True"
         assert wsym == ("" if field == "Darcy flux" else "True")
+    # the reference demo's pressure XDMF
+    root = ET.parse(tmp_path / "biot_pressure.xdmf").getroot()
+    assert {a.get("Name") for a in root.iter("Attribute")} == {"p", "pt"}
 
 
 def test_demo_info():
