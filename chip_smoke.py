@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--n 500] [--profile] [--k1-sweep] [--phase22]
+                          [--phase23]
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc).  It builds the port's CUDA kernels from ``csrc/`` for
@@ -30,7 +31,8 @@ geometric multigrid and Biot poro-elasticity (K1, K2 on the Biot path's
 operands): ``bench.py 500 3 --biot``'s data and engine calls, the Biot
 demo's flow, and the multigrid solvers and perftest series; then patch
 sharding over ``torch.distributed`` (K1, K2 on every rank), Gmsh import
-and the ParaView output.
+and the ParaView output; then the port's bench, ``bench.py``'s
+counterpart, in its four modes (K1, K2, K4).
 
 Phases, one line each:
 
@@ -43,7 +45,9 @@ Phases, one line each:
       main path's shapes, the mixed path's chunk, RT3's, the tile route's
       split, the P4/RT4 L-shape's last step and RT4 / RT5 at the chunk;
       then each route once on each side of each split of ``k1_plan``;
-   5. K2 (dof combine) against its plain version, bitwise;
+   5. K2 (dof combine) against its plain version, bitwise, and timed
+      beside the one-call library sum ``embedding_bag(mode="sum")`` (held
+      to K2 within 4 ulp of max|out|);
    6. the semi-explicit main path: first call, 5 strict calls, 3 x 8
       pipelined calls, launch counts (K1's by route), output checks, a
       stage breakdown, the interior inverse build alone by each K1 route;
@@ -136,8 +140,8 @@ Phases, one line each:
       2), the MG elasticity CG (P2) and Herrmann MINRES (P3 x P2) on the
       hierarchy of ``unit_square(8)`` to 1,048,576 cells, and
       ``run_perftest`` for "elasticity" and "biot" (orders 2-4, n0 = 8,
-      nrefs = 5), its structural columns held row for row to
-      ``artifacts/Perftest_*.csv``;
+      nrefs = 4: to 16,384 cells), its structural columns held row for
+      row to ``artifacts/Perftest_*.csv``;
   22. patch sharding and I/O (``parallel.ShardedEqlbEngine``, K1 and K2 on
       every rank): (a) ``entry.dryrun_multichip``'s four cases, f64, on 2
       gloo ranks spawned on the one card, each against the single-device
@@ -152,13 +156,25 @@ Phases, one line each:
       ``tests/test_msh_io.py`` with the equilibration on the imported mesh,
       card against CPU, and the reconstruction flow at n = 64 with its XDMF
       and VTU written to a temporary directory (the XDMF parsed, its
-      inline data numeric).
+      inline data numeric);
+  23. the port's bench (``python -m dolfinx_eqlb_tpu_torch.bench``), one
+      process per mode: ``n`` (the headline: RT2, f32, one field),
+      ``n --stress``, ``n --mixed`` (f64 curl-field data, K1 in f32 with an
+      f64 correction, K4; the divergence residual re-checked in f64 on the
+      CPU, relative residual <= 1e-12) and ``128 3 --biot`` (65,536
+      cells): each must print its two JSON lines, strict first, without
+      an error, with value > 0, vs_baseline null, this card, and the
+      launches per timed call of ``BENCH_MODES``; then K1 and K2 against
+      their plain versions on the ``128 3 --biot`` engine's own operands,
+      built in this process by ``bench.setup`` (the other modes' shapes
+      are those of phases 6, 10 and 15).
 
 Kernel times are CUDA-event means of single launches, each after a write
 of 256 MB that leaves the 50 MB L2 cold.  ``--k1-sweep`` only builds the
 kernels and times K1's tile route against its block route (several
 thread counts) over D and X, the measurement ``k1_plan``'s split rests
-on.  ``--phase22`` only builds the kernels and runs phase 22.
+on.  ``--phase22`` only builds the kernels and runs phase 22, ``--phase23``
+phase 23.
 ``--profile`` writes its trace through ``utils.profiling.trace`` to
 ``smoke_out/profile``.  Any failure exits non-zero; nothing falls back to
 the CPU.  The line before the last is a JSON object
@@ -696,13 +712,32 @@ def phase_combine(name, src_np, nfk, L, dtypes, device, timer, seed):
         row["plain_ms"] = timer.ms(lambda: plain(flat, src, nfk))
         row["bound_ms"], row["bound_by"] = combine_bound(
             src_np, nfk, 1, dtype, flops_per_dof)
+        library = ""
+        if name == "K2":
+            # the one-call library sum: a bag of 3 rows of flat^T per dof
+            # (an absent third contributor reads the zero slot); the layout
+            # conversions stay outside the timed call
+            idx, weight = src.long(), flat.T.contiguous()
+            lib = torch.nn.functional.embedding_bag(idx, weight, mode="sum")
+            row["library_max_abs_err"] = float((lib.T - out).abs().max())
+            row["library_limit"] = 4 * torch.finfo(dtype).eps * float(
+                out.abs().max())
+            row["ok"] = row["ok"] and (row["library_max_abs_err"]
+                                       <= row["library_limit"])
+            row["library_ms"] = timer.ms(lambda: torch.nn.functional
+                                         .embedding_bag(idx, weight,
+                                                        mode="sum"))
+            library = (f", embedding_bag {row['library_ms']:.4f} ms (max|lib"
+                       f" - K2| {row['library_max_abs_err']:.3e}, limit "
+                       f"{row['library_limit']:.3e})")
         rows.append(row)
         extra = (f", vs K2 {row['vs_K2_f64']:.3e} (limit "
                  f"{row['vs_K2_limit']:.3e})" if name == "K4" else "")
         log(f"    {name} {row['dtype']} ndofs={src.shape[0]} L={L}: "
             f"bitwise_equal={equal}{extra}; kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}){'' if row['ok'] else '  FAILED'}")
+            f"plain {row['plain_ms']:.4f} ms{library}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+            f"{'' if row['ok'] else '  FAILED'}")
     return rows
 
 
@@ -2791,7 +2826,7 @@ PERFTEST_CSVS = {"elasticity": "artifacts/Perftest_elasticity.csv",
                  "biot": "artifacts/Perftest_biot.csv"}
 
 
-def phase_multigrid(device, n_levels_ela: int = 7, perftest_nrefs: int = 5,
+def phase_multigrid(device, n_levels_ela: int = 7, perftest_nrefs: int = 4,
                     poisson_levels=range(2, 7)) -> dict:
     """Phase 21: multigrid on the card, f64.  The P2 Poisson V-cycle MINRES
     on ``mesh_hierarchy(unit_square(4), L)`` for each L (mesh
@@ -2799,7 +2834,9 @@ def phase_multigrid(device, n_levels_ela: int = 7, perftest_nrefs: int = 5,
     deepest; the MG elasticity CG (P2, u) and the MG Herrmann MINRES
     (P3 x P2, u-p) on ``mesh_hierarchy(unit_square(8), 7)`` (the size of
     ``unit_square(512)``), iterations and seconds; then ``run_perftest``
-    for "elasticity" and "biot", orders 2-4, n0 = 8, nrefs = 5, repeats 1:
+    for "elasticity" and "biot", orders 2-4, n0 = 8, nrefs = 4 (to 16,384
+    cells; the script's time limit keeps the 65,536-cell rows out),
+    repeats 1:
     its structural columns against the committed
     ``artifacts/Perftest_*.csv`` row for row, its times recorded."""
     import csv
@@ -3346,6 +3383,142 @@ def report_sharding(r: dict, nph: int, failures: list) -> None:
     log("    detail: " + json.dumps(r))
 
 
+# phase 23: the port's bench by mode: its arguments after n (None: n is
+# fixed in the arguments) and the launches a timed call makes, K1 by route
+# (routes absent: none)
+BENCH_MODES = {
+    "default": ([], {"K1": {"tile": 2}, "K2": 1, "K3": 0, "K4": 0,
+                     "pivoted_solves": 0}),
+    "stress": (["--stress"], {"K1": {"tile": 2}, "K2": 1, "K3": 0, "K4": 0,
+                              "pivoted_solves": 2}),
+    # the f32 factorisation and its one f64 correction per boundary chunk
+    "mixed": (["--mixed"], {"K1": {"tile": 4}, "K2": 0, "K3": 0, "K4": 1,
+                            "pivoted_solves": 0}),
+    # 65,536 cells (phase 19 runs the 1,048,576-cell headline): three
+    # boundary patch shapes on the refined hierarchy, three masked solves
+    "biot": (None, {"K1": {"tile": 3}, "K2": 1, "K3": 0, "K4": 0,
+                    "pivoted_solves": 0}),
+}
+BENCH_BIOT = dict(n=128, n_fields=3, biot=True)
+BENCH_BIOT_ARGS = ["128", "3", "--biot"]
+BENCH_DIVERGENCE_REL_LIMIT = 1e-12
+
+
+def bench_run(cmd: list, timeout: float = 600.0) -> dict:
+    """One bench process: exit code, seconds, its JSON lines and the end
+    of its log."""
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=repo_file(""), capture_output=True,
+                         text=True, timeout=timeout)
+    lines = [json.loads(line) for line in res.stdout.splitlines()
+             if line.startswith("{")]
+    return {"cmd": " ".join(cmd[1:]), "rc": res.returncode,
+            "seconds": time.perf_counter() - t0, "lines": lines,
+            "log_tail": res.stderr[-3000:]}
+
+
+def bench_problems(run: dict, expected: dict, card: str, mixed: bool) -> list:
+    """What is wrong with a bench run: its exit code, the two lines (strict
+    first), an error, value, vs_baseline, the card, the launches per timed
+    call, and under --mixed the relative divergence residual."""
+    out = [] if run["rc"] == 0 else [f"exit code {run['rc']}"]
+    lines = run["lines"]
+    if len(lines) != 2:
+        return out + [f"{len(lines)} JSON lines, not 2"]
+    strict, piped = lines
+    if not (strict["metric"].endswith(" [strict latency]")
+            and "pipelined_ms" in piped and "pipelined_ms" not in strict):
+        out.append("the strict line is not first")
+    for name, line in zip(("strict", "pipelined"), lines):
+        if "error" in line:
+            out.append(f"{name}: error {line['error']}")
+            continue
+        if not line["value"] > 0:
+            out.append(f"{name}: value {line['value']}")
+        if line["vs_baseline"] is not None:
+            out.append(f"{name}: vs_baseline {line['vs_baseline']}")
+        if line["device"] != card:
+            out.append(f"{name}: device {line['device']!r}")
+        got = dict(line["launches"])
+        got["K1"] = {rt: v for rt, v in got["K1"].items() if v}
+        if got != expected:
+            out.append(f"{name}: launches per call {got}, not {expected}")
+        if mixed and not (line["divergence_rel_err"]
+                          <= BENCH_DIVERGENCE_REL_LIMIT):
+            out.append(f"{name}: divergence_rel_err "
+                       f"{line['divergence_rel_err']}")
+    return out
+
+
+def bench_launch_totals(run: dict) -> dict:
+    """Each kernel's launches over a bench run's timed calls (per call
+    times the calls of each line)."""
+    tot = dict.fromkeys(("K1", "K2", "K3", "K4"), 0)
+    for line in run["lines"]:
+        calls = (8 * len(line["pipelined_samples_ms"])
+                 if "pipelined_ms" in line
+                 else len(line["latency_samples_ms"]))
+        per = line["launches"]
+        tot["K1"] += round(sum(per["K1"].values()) * calls)
+        for kname in ("K2", "K3", "K4"):
+            tot[kname] += round(per[kname] * calls)
+    return tot
+
+
+def phase_bench(n: int, card: str, device) -> dict:
+    """Phase 23: ``python -m dolfinx_eqlb_tpu_torch.bench`` in its four
+    modes, one process each (``n``, ``n --stress``, ``n --mixed``,
+    ``128 3 --biot``), each run checked by ``bench_problems``; then
+    ``engine_kernel_checks`` on the ``128 3 --biot`` engine, built here by
+    ``bench.setup`` as the bench builds it."""
+    from dolfinx_eqlb_tpu_torch import bench
+
+    runs = {}
+    for mode, (args, expected) in BENCH_MODES.items():
+        argv = BENCH_BIOT_ARGS if args is None else [str(n), *args]
+        run = bench_run([sys.executable, "-m", "dolfinx_eqlb_tpu_torch.bench",
+                         *argv])
+        run["problems"] = bench_problems(run, expected, card, mode == "mixed")
+        runs[mode] = run
+    b = bench.setup(**BENCH_BIOT, device=device)
+    checks = engine_kernel_checks(b.engine, b.call)
+    del b
+    return {"runs": runs, "biot_kernel_checks": checks}
+
+
+def report_bench(res: dict, nph: int, failures: list) -> None:
+    r = res["runs"]
+    keys = ("value", "latency_ms", "latency_median_ms", "pipelined_ms",
+            "data_s", "engine_tables_s", "geometry_caches_s", "first_call_s",
+            "peak_mem_gib", "divergence_max_err",
+            "divergence_max_err_host_f64", "divergence_rel_err",
+            "host_check_s")
+    for mode, run in r.items():
+        last = run["lines"][-1] if run["lines"] else {}
+        log(f"[23/{nph}] bench {mode} ({run['cmd']}): exit {run['rc']}, "
+            f"{run['seconds']:.1f} s; " + ", ".join(
+                f"{key} {last[key]:.6g}" for key in keys
+                if isinstance(last.get(key), float))
+            + f"; launches per call {last.get('launches')}"
+            + (f"  FAILED: {run['problems']}" if run["problems"] else ""))
+        for line in run["lines"]:
+            log("    " + json.dumps(line))
+        if run["problems"]:
+            log("    log tail:\n" + run["log_tail"])
+            failures.append(f"phase 23 bench {mode}: {run['problems']}")
+    kc = res["biot_kernel_checks"]
+    ok = all(k["ok"] for k in kc["K1"]) and kc["K2"]["ok"]
+    log(f"[23/{nph}] bench biot engine ({' '.join(BENCH_BIOT_ARGS)}), its "
+        "operands: K1 " + ", ".join(
+            f"{k['dtype']} D={k['D']} R={k['R']} X={k['X']} rel "
+            f"{k['max_rel_err']:.1e}" for k in kc["K1"])
+        + f"; K2 ndofs={kc['K2']['ndofs']} bitwise {kc['K2']['bitwise']}"
+        + ("" if ok else "  FAILED"))
+    if not ok:
+        failures.append("phase 23 bench biot: K1 or K2 disagrees with its "
+                        "plain version on the engine's operands")
+
+
 def kernel_entry(name, source, replaces, launches, row, errs):
     """One entry of the "kernels" line from a phase row."""
     return {"name": name, "route": "cuda", "source": source,
@@ -3371,6 +3544,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phase22", action="store_true",
                     help="only build the kernels and run phase 22 (patch "
                     "sharding and I/O), against its own stress reference")
+    ap.add_argument("--phase23", action="store_true",
+                    help="only build the kernels and run phase 23 (the "
+                    "port's bench in its four modes)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3390,7 +3566,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     failures = []
-    nph = 22
+    nph = 23
 
     card = card_line()
     log(card)
@@ -3416,6 +3592,11 @@ def main(argv=None) -> int:
     if args.phase22:
         shard = phase_sharding(device, args.n)
         report_sharding(shard, nph, failures)
+        for f in failures:
+            print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
+        return 1 if failures else 0
+    if args.phase23:
+        report_bench(phase_bench(args.n, card, device), nph, failures)
         for f in failures:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
         return 1 if failures else 0
@@ -3457,7 +3638,8 @@ def main(argv=None) -> int:
     k2 = phase_combine("K2", engine._src, engine._nfk, engine._flat_len + 1,
                        (torch.float32, torch.float64), device, timer, seed=1)
     if not all(r["ok"] for r in k2):
-        failures.append("K2 is not bitwise equal to its plain version")
+        failures.append("K2 is not bitwise equal to its plain version or "
+                        "strays from embedding_bag")
 
     x, main_res = phase_main(engine, data, device, profile=args.profile)
     marks.append(("5-6", time.perf_counter()))
@@ -3633,6 +3815,11 @@ def main(argv=None) -> int:
     shard = phase_sharding(device, args.n)
     marks.append(("22", time.perf_counter()))
     report_sharding(shard, nph, failures)
+    torch.cuda.empty_cache()
+
+    bench = phase_bench(args.n, card, device)
+    marks.append(("23", time.perf_counter()))
+    report_bench(bench, nph, failures)
 
     log("seconds by phase (host clock, each to the end of its run): "
         + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t) in
@@ -3681,6 +3868,9 @@ def main(argv=None) -> int:
         kname: sum(rk["launches"][kname]
                    for rk in shard["full_width"]["ranks"])
         for kname in kernel_wrappers()}
+    # slice 7: the bench's timed calls, one process per mode
+    for mode, run in bench["runs"].items():
+        paths[f"bench_{mode}"] = bench_launch_totals(run)
 
     def total(kname):
         return sum(p[kname] for p in paths.values())
@@ -3697,10 +3887,12 @@ def main(argv=None) -> int:
                    + [r["kernel_checks"] for r in lsh.values()]
                    + [stress["kernel_checks"], ela["kernel_checks"],
                       biot["flux"]["kernel_checks"],
-                      biot["ws"]["kernel_checks"], bflow["kernel_checks"]])
+                      biot["ws"]["kernel_checks"], bflow["kernel_checks"],
+                      bench["biot_kernel_checks"]])
     biot_checks = {"biot_bench_f32": biot["flux"]["kernel_checks"],
                    "biot_bench_ws_f32": biot["ws"]["kernel_checks"],
-                   "biot_flow_f64": bflow["kernel_checks"]}
+                   "biot_flow_f64": bflow["kernel_checks"],
+                   "bench_biot_128_f32": bench["biot_kernel_checks"]}
     k3_stress_checks = (skkt["k3_checks"]
                         + skkt["reduced"]["boundary"]["k3_checks"])
     k3_stress_errs = [c["max_abs_err"] for c in k3_stress_checks]
@@ -3759,7 +3951,9 @@ def main(argv=None) -> int:
             "biot_flow_f64": bflow["k1_launches_by_route"],
             **{f"sharded_stress_f32_rank{rk['rank']}":
                rk["k1_launches_by_route"]
-               for rk in shard["full_width"]["ranks"]}},
+               for rk in shard["full_width"]["ranks"]},
+            **{f"bench_{mode}_per_call": run["lines"][-1]["launches"]["K1"]
+               for mode, run in bench["runs"].items()}},
         lshape_last_step_shapes=[
             {key: c[key] for key in ("D", "R", "X", "route", "ms",
                                      "plain_ms", "library_ms", "bound_ms",

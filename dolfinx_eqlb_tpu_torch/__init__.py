@@ -40,9 +40,9 @@ Ported:
   ``entry.dryrun_multichip``;
 * tooling: ``mesh.read_msh`` (Gmsh import), ``utils`` (``run_perftest``,
   ``sync`` / ``timed`` / ``trace``, ``write_vtu`` / ``write_xdmf`` /
-  ``flux_cell_values``).
-
-Not ported: the JAX package's ``bench.py`` (the port has no bench yet).
+  ``flux_cell_values``);
+* the bench, ``bench`` (``bench.py``'s counterpart: ``python -m
+  dolfinx_eqlb_tpu_torch.bench``, or ``bench_torch.py`` from the root).
 
 Entry points run on the CUDA card by default and raise without one; pass
 ``device="cpu"`` for the CPU.  Nothing here imports jax.
