@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--n 500] [--profile] [--k1-sweep] [--phase22]
-                          [--phase23]
+                          [--phase23] [--phase24]
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc).  It builds the port's CUDA kernels from ``csrc/`` for
@@ -32,7 +32,8 @@ operands): ``bench.py 500 3 --biot``'s data and engine calls, the Biot
 demo's flow, and the multigrid solvers and perftest series; then patch
 sharding over ``torch.distributed`` (K1, K2 on every rank), Gmsh import
 and the ParaView output; then the port's bench, ``bench.py``'s
-counterpart, in its four modes (K1, K2, K4).
+counterpart, in its four modes (K1, K2, K4); then the KKT cross-check path
+at RT3 on a 1M-cell unstructured mesh (K3's wide route, K2).
 
 Phases, one line each:
 
@@ -54,11 +55,14 @@ Phases, one line each:
    7. f64 parity on ``unit_square(64)``: card (kernels) against the CPU
       (plain versions);
    8. K3 (batch-major pivot-free solve) against its plain version, by the
-      route ``k3_plan`` picks (the register route at D <= 64) and by the
-      shared-memory route on the same batch, timed in turns; then every
-      route once at a small batch, on each side of each split;
+      route ``k3_plan`` picks (the register route at D <= 64, the wide
+      route at 64 < D <= 110) and by the shared-memory route on the same
+      batch, timed in turns, at the KKT path's shapes and at D = 75, 90,
+      105 (the wide route's, phase 24) at X = 131072; then every route
+      once at a small batch, on each side of each split;
    9. the KKT path, f64 and f32, against the f64 plain route, with K3's
-      launches split by route;
+      launches split by route, and K2 against its plain version on one
+      more call's combine input;
   10. K4 (double-single combine) against its plain version, bitwise;
   11. the mixed-precision path against the f64 plain route (K1's
       launches by route), and the native-f64 kernel route on the same
@@ -137,8 +141,9 @@ Phases, one line each:
       against CPU (1e-11 relative, iterations within one);
   21. multigrid: the P2 Poisson V-cycle MINRES for 2-6 levels from
       ``unit_square(4)``, the V-cycle's symmetry in f64 (block sizes 1 and
-      2), the MG elasticity CG (P2) and Herrmann MINRES (P3 x P2) on the
-      hierarchy of ``unit_square(8)`` to 1,048,576 cells, and
+      2), the MG elasticity CG (P2) on the hierarchy of ``unit_square(8)``
+      to 1,048,576 cells and the Herrmann MINRES (P3 x P2) on its first 6
+      levels (262,144 cells), and
       ``run_perftest`` for "elasticity" and "biot" (orders 2-4, n0 = 8,
       nrefs = 4: to 16,384 cells), its structural columns held row for
       row to ``artifacts/Perftest_*.csv``;
@@ -167,14 +172,25 @@ Phases, one line each:
       launches per timed call of ``BENCH_MODES``; then K1 and K2 against
       their plain versions on the ``128 3 --biot`` engine's own operands,
       built in this process by ``bench.setup`` (the other modes' shapes
-      are those of phases 6, 10 and 15).
+      are those of phases 6, 10 and 15);
+  24. the KKT path, f64 and f32, at RT3 on ``unit_square_unstructured(m)``,
+      m = ceil(sqrt(2) n) (708 at n = 500: ~1,002,528 cells, the
+      headline's size; what Gmsh users bring), one
+      field, every boundary facet kind 1: host set-up seconds, patches by
+      system size (D = 75, 90 and 105 for most, on K3's wide route),
+      strict and pipelined ms, the assembly / solve split, peak memory,
+      K3's launches by route (none on the shared route), the result
+      against the f64 plain route, and K3 and K2 against their plain
+      versions on every solve and the combine of one more call's own
+      operands.
 
 Kernel times are CUDA-event means of single launches, each after a write
 of 256 MB that leaves the 50 MB L2 cold.  ``--k1-sweep`` only builds the
 kernels and times K1's tile route against its block route (several
 thread counts) over D and X, the measurement ``k1_plan``'s split rests
 on.  ``--phase22`` only builds the kernels and runs phase 22, ``--phase23``
-phase 23.
+phase 23, ``--phase24`` phase 8's rows at the wide route's shapes and
+phase 24.
 ``--profile`` writes its trace through ``utils.profiling.trace`` to
 ``smoke_out/profile``.  Any failure exits non-zero; nothing falls back to
 the CPU.  The line before the last is a JSON object
@@ -186,6 +202,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -912,14 +929,24 @@ def kkt_shapes(engine):
     return shapes
 
 
-def phase_k3(shapes, device, timer):
+# K3 at the wide route's KKT sizes (RT3 on an unstructured mesh: D = 75,
+# 90 and 105, phase 24) at the main path's chunk
+K3_WIDE_SHAPES = [(75, 1, CHUNK), (90, 1, CHUNK), (105, 1, CHUNK)]
+# (D, R) of phase 8's untimed checks at a small batch: the register tiles
+# 7 x 4 and 8 x 5 at their edges (32, 33, 64), every wide tile at its
+# edges (65 ... 110, R = 2 at the 7 x 7 tile's last column) and the
+# shared-memory route past them (120)
+K3_EDGE_CHECKS = [(32, 1), (33, 1), (64, 1), (65, 1), (79, 1), (80, 1),
+                  (95, 1), (96, 1), (110, 1), (110, 2), (120, 1)]
+
+
+def phase_k3(shapes, device, timer, edges=K3_EDGE_CHECKS):
     """K3 against its plain version on random SPD batch-major systems, by
     the route ``k3_plan`` picks and by the shared-memory route on the same
     batch; the library call is torch.linalg.solve on the same batch.  Then
     the route ``k3_plan`` picks once at a small batch, checked and not
-    timed, at D = 32, 33 and 64 (the 7 x 4 and 8 x 5 register tiles at
-    their edges) and D = 75 and 105 (the shared route, at 105 in f64 past
-    48 KB of shared memory), so that every route is launched and checked."""
+    timed, at each (D, R) of ``edges``, so that every route is launched and
+    checked."""
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
         _solve_route, batched_kkt_solve, batched_kkt_solve_plain, k3_plan,
     )
@@ -967,17 +994,17 @@ def phase_k3(shapes, device, timer):
                 f"{row['bound_ms'] / row['ms']:.3f}"
                 f"{'' if row['ok'] else '  FAILED'}")
             del A, b
-        for D in (32, 33, 64, 75, 105):
-            A, b = spd_batch(4096, D, 1, dtype, device, gen)
+        for D, R in edges:
+            A, b = spd_batch(4096, D, R, dtype, device, gen)
             xp = batched_kkt_solve_plain(A, b)
-            route = k3_plan(D, 1, dtype)
+            route = k3_plan(D, R, dtype)
             x = batched_kkt_solve(A, b)
             sync(device)
             rel = float((x - xp).abs().max()) / float(xp.abs().max())
             ok = bool(torch.isfinite(x).all()) and rel <= tol
-            tiles.append(dict(dtype=dname(dtype), D=D, R=1, X=4096,
+            tiles.append(dict(dtype=dname(dtype), D=D, R=R, X=4096,
                               route=route, max_rel_err=rel, ok=ok))
-            log(f"    K3 tile check {dname(dtype)} D={D} X=4096: {route} "
+            log(f"    K3 tile check {dname(dtype)} D={D} R={R} X=4096: {route} "
                 f"max_rel_err={rel:.3e} (limit {tol:g})"
                 f"{'' if ok else '  FAILED'}")
             del A, b, x, xp
@@ -986,12 +1013,17 @@ def phase_k3(shapes, device, timer):
 
 def kkt_stages(eng, args, device) -> dict:
     """Where a KKT call's time goes: the assembly and the solves of every
-    bucket, host clock around synchronised stages, best of 2 calls."""
+    bucket, the solves split into K3's (``k3_takes``) and the pivoted
+    ``torch.linalg.solve`` of the larger systems; host clock around
+    synchronised stages, best of 2 calls."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import k3_takes
+
     dp, dr, fk, bv = args
     kdev, krefd = eng._kkt_tables()
     best = {}
     for _ in range(2):
-        stages = {"assembly_ms": 0.0, "solve_ms": 0.0}
+        stages = {"assembly_ms": 0.0, "solve_k3_ms": 0.0,
+                  "solve_linalg_ms": 0.0}
         for key in sorted(eng.buckets):
             t0 = time.perf_counter()
             Ar, br, _ = eng._assemble_bucket(key, dp, dr, fk, bv, kdev[key],
@@ -1001,16 +1033,20 @@ def kkt_stages(eng, args, device) -> dict:
             eng._dense_solve(Ar, br[..., None])
             sync(device)
             stages["assembly_ms"] += (t1 - t0) * 1e3
-            stages["solve_ms"] += (time.perf_counter() - t1) * 1e3
+            stages["solve_k3_ms" if k3_takes(Ar.shape[-1])
+                   else "solve_linalg_ms"] += (time.perf_counter() - t1) * 1e3
             del Ar, br
         best = {name: min(val, best.get(name, val))
                 for name, val in stages.items()}
     return best
 
 
-def phase_kkt(eng64, msh, device):
+def phase_kkt(eng64, msh, device, operand_checks=False):
     """The KKT path at full width, f64 and f32 (K3 and K2), each against
-    the f64 plain route: solver "torch" and the plain combine."""
+    the f64 plain route: solver "torch" and the plain combine; then K2
+    against its plain version on one more call's combine input and, with
+    ``operand_checks``, K3 on every solve of that call's own operands
+    (``capture_dense_solves(check=True)``)."""
     from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
     from dolfinx_eqlb_tpu_torch.ops.lane_select import combine_gather_plain
 
@@ -1047,6 +1083,18 @@ def phase_kkt(eng64, msh, device):
             kernel_wrappers()["K3"].launches_by_route)
         res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         res["stages_ms"] = kkt_stages(eng, args, device)
+        flats, combine = [], eng._combine_flat
+        eng._combine_flat = lambda flat: flats.append(flat) or combine(flat)
+        try:
+            if operand_checks:
+                res["k3_checks"] = capture_dense_solves(
+                    eng, lambda: eng.equilibrate(*args), check=True)[1]
+            else:
+                eng.equilibrate(*args)
+        finally:
+            del eng._combine_flat
+        res["k2_check"] = k2_operand_check(eng, flats[0])
+        del flats
         res["finite"] = bool(torch.isfinite(x).all())
         res["shape_ok"] = tuple(x.shape) == tuple(x_ref.shape)
         res["max_abs_err_vs_plain_f64"] = float(
@@ -1058,6 +1106,128 @@ def phase_kkt(eng64, msh, device):
         out[dname(dtype)] = res
         del eng, x
     return out
+
+
+def unstructured_n(n: int) -> int:
+    """Phase 24's size m: ``unit_square_unstructured(m)`` has about 2 m^2
+    cells, as many as the crossed ``unit_square(n)``'s 4 n^2 (m = 708 at
+    the headline's n = 500)."""
+    return math.ceil(n * math.sqrt(2))
+
+
+def kkt_patches_by_size(engine) -> dict:
+    """Patches of the KKT path by system size D (every bucket, the sizes
+    past K3's rule included)."""
+    sizes = {}
+    for key in engine.buckets:
+        D, _ = engine.kkt_size(key)
+        sizes[D] = sizes.get(D, 0) + engine.tables[key]["gdofs"].shape[0]
+    return dict(sorted(sizes.items()))
+
+
+def phase_kkt_unstructured(device, n: int) -> dict:
+    """Phase 24: the KKT cross-check path at RT3 on
+    ``unit_square_unstructured(n)`` (what Gmsh users bring), one field,
+    ``make_data``'s random data with every boundary facet kind 1: most of
+    its patch systems have D = 75, 90 or 105 and take K3's wide route.
+    ``phase_kkt`` on an f64 engine of the mesh (chunk ``CHUNK``), with K3
+    held against its plain version on every solve of one more call's own
+    operands; the host set-up seconds beside it."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
+    from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
+    from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
+    from dolfinx_eqlb_tpu_torch.mesh import unit_square_unstructured
+
+    t_start = time.perf_counter()
+    setup = {}
+    t0 = time.perf_counter()
+    msh = unit_square_unstructured(n)
+    setup["mesh_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    buckets = build_patches(msh)
+    setup["patches_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng64 = EqlbEngine(FunctionSpace(msh, "RT", 3), buckets,
+                       dtype=torch.float64, device=device,
+                       max_patches_per_bucket=CHUNK)
+    setup["tables_s"] = time.perf_counter() - t0
+    res = dict(n=n, cells=msh.num_cells,
+               patches=sum(b.npatches for b in buckets.values()),
+               patches_by_D=kkt_patches_by_size(eng64),
+               shapes=kkt_shapes(eng64), setup=setup)
+    t0 = time.perf_counter()
+    res["paths"] = phase_kkt(eng64, msh, device, operand_checks=True)
+    res["run_s"] = time.perf_counter() - t0
+    res["seconds"] = time.perf_counter() - t_start
+    return res
+
+
+def report_kkt(kkt: dict, label: str, shapes, nph: int, failures: list,
+               nph_this: int) -> None:
+    """Print a KKT phase (9 or 24) and add its failures: a path off the f64
+    plain route, a kernel skipped, a K3 route launched that no shape of
+    the path plans, K2 off its plain version on the call's combine input,
+    and K3 off its plain version on the call's operands where they were
+    checked."""
+    from dolfinx_eqlb_tpu_torch.ops.patch_solve import k3_plan
+
+    for dt, r in kkt.items():
+        checks, k2 = r.get("k3_checks"), r["k2_check"]
+        on_operands = (
+            f"; K2 vs plain on its operands: ndofs={k2['ndofs']} "
+            f"L={k2['L']} bitwise {k2['bitwise']}")
+        on_operands += "" if checks is None else (
+            "; K3 vs plain on its operands: " + "; ".join(
+                f"D={c['D']} X={c['X']} {c['route']} max_rel_err "
+                f"{c['max_rel_err']:.3e} (limit {c['limit']:g})"
+                for c in checks))
+        log(f"[{nph_this}/{nph}] KKT path {label} {dt} 1 field: "
+            f"first call {r['first_call_s']:.3f} s; strict "
+            f"{r['strict_ms_median']:.3f} ms median, pipelined "
+            f"{r['pipelined_ms_min']:.3f} ms ({r['stages_ms']}); peak "
+            f"{r['peak_mem_gib']:.2f} GiB; launches {r['launches']}, K3 by "
+            f"route {r['k3_launches_by_route']}; max|x - plain f64| "
+            f"{r['max_abs_err_vs_plain_f64']:.3e} (limit "
+            f"{r['err_limit']:.3e}){on_operands}"
+            f"{'' if r['ok'] else '  FAILED'}")
+        log("    detail: " + json.dumps(r))
+        if not r["ok"]:
+            failures.append(f"KKT path {label} {dt} disagrees with the "
+                            f"plain route")
+        if r["launches"]["K3"] <= 0 or r["launches"]["K2"] <= 0:
+            failures.append(f"KKT path {label} {dt} skipped a kernel: "
+                            f"{r['launches']}")
+        planned = {k3_plan(D, R, getattr(torch, dt)) for D, R, _ in shapes}
+        stray = {rt: n for rt, n in r["k3_launches_by_route"].items()
+                 if n and rt not in planned}
+        skipped = {rt for rt in planned if not r["k3_launches_by_route"][rt]}
+        if stray or skipped:
+            failures.append(f"KKT path {label} {dt} launched K3 routes its "
+                            f"shapes do not plan ({planned}): {stray}, or "
+                            f"skipped planned ones: {skipped}")
+        if not k2["ok"]:
+            failures.append(f"KKT path {label} {dt}: K2 disagrees with its "
+                            f"plain version on the call's operands")
+        if checks is not None and not (checks
+                                       and all(c["ok"] for c in checks)):
+            failures.append(f"KKT path {label} {dt}: K3 disagrees with its "
+                            f"plain version on the call's operands")
+
+
+def report_kkt_unstructured(r: dict, nph: int, failures: list) -> None:
+    s = r["setup"]
+    log(f"[24/{nph}] KKT path unit_square_unstructured({r['n']}) RT3: "
+        f"{r['cells']} cells, {r['patches']} patches, by KKT size D "
+        f"{r['patches_by_D']}; K3 shapes (D, R, X) {r['shapes']}; host "
+        f"set-up mesh {s['mesh_s']:.2f} s, patches {s['patches_s']:.2f} s, "
+        f"engine tables {s['tables_s']:.2f} s; run {r['run_s']:.1f} s, "
+        f"phase {r['seconds']:.1f} s")
+    report_kkt(r["paths"], f"unit_square_unstructured({r['n']}) RT3",
+               r["shapes"], nph, failures, 24)
+    for dt, p in r["paths"].items():
+        if p["k3_launches_by_route"]["shared"]:
+            failures.append(f"KKT path RT3 unstructured {dt}: K3's shared "
+                            f"route launched at the wide route's shapes")
 
 
 def phase_mixed(V, buckets, msh, device):
@@ -1148,9 +1318,6 @@ def engine_kernel_checks(eng, call, timer=None) -> dict:
     operand set is also timed by the route ``k1_plan`` picks, beside its
     plain version, ``torch.linalg.solve`` and its bound.  Run after the
     path's launches are read."""
-    from dolfinx_eqlb_tpu_torch.ops.lane_select import (
-        combine_gather, combine_gather_plain,
-    )
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
         batched_kkt_solve_bl, batched_kkt_solve_bl_plain, k1_plan,
     )
@@ -1192,14 +1359,25 @@ def engine_kernel_checks(eng, call, timer=None) -> dict:
             row["bound_ms"], row["bound_by"] = lu_bound(D, R, X, A.dtype)
         k1.append(row)
         del x, xp
+    return {"K1": k1, "K2": k2_operand_check(eng, flats[0])}
+
+
+def k2_operand_check(eng, flat) -> dict:
+    """K2 against its plain version on an engine's captured combine input
+    (the argument of one ``_combine_flat`` call), bitwise."""
+    from dolfinx_eqlb_tpu_torch.ops.lane_select import (
+        combine_gather, combine_gather_plain,
+    )
+
     src = eng._combine_src()
-    out = combine_gather(flats[0], src, eng._nfk)
-    ref = combine_gather_plain(flats[0], src, eng._nfk)
-    k2 = dict(dtype=dname(out.dtype), ndofs=out.shape[1],
-              L=flats[0].shape[1], bitwise=bool(torch.equal(out, ref)),
+    out = combine_gather(flat, src, eng._nfk)
+    ref = combine_gather_plain(flat, src, eng._nfk)
+    k2 = dict(dtype=dname(out.dtype), ndofs=out.shape[1], L=flat.shape[1],
+              bitwise=bool(torch.equal(out, ref)),
               max_abs_err=float((out - ref).abs().max()))
     k2["ok"] = k2["bitwise"]
-    return {"K1": k1, "K2": k2}
+    del out, ref
+    return k2
 
 
 def flux_flow(msh, bc: str, device, degree: int = 2) -> dict:
@@ -2133,8 +2311,8 @@ def report_elasticity(r: dict, nph: int, failures: list) -> None:
 
 def k3_operand_checks(solves) -> list:
     """K3 against its plain version on captured batch-major operands, one
-    row per operand set: within 1e-12 of the plain solve relative to its
-    largest entry (f64)."""
+    row per operand set: within 1e-12 (f64) or 1e-4 (f32) of the plain
+    solve relative to its largest entry."""
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
         batched_kkt_solve, batched_kkt_solve_plain, k3_plan,
     )
@@ -2146,16 +2324,23 @@ def k3_operand_checks(solves) -> list:
         err = float((x - xp).abs().max())
         rel = err / float(xp.abs().max())
         D, R = A.shape[-1], b.shape[-1]
-        rows.append(dict(D=D, R=R, X=int(np.prod(A.shape[:-2])),
+        tol = 1e-12 if A.dtype == torch.float64 else 1e-4
+        rows.append(dict(dtype=dname(A.dtype), D=D, R=R,
+                         X=int(np.prod(A.shape[:-2])),
                          route=k3_plan(D, R, A.dtype), max_abs_err=err,
-                         max_rel_err=rel,
-                         ok=bool(torch.isfinite(x).all()) and rel <= 1e-12))
+                         max_rel_err=rel, limit=tol,
+                         ok=bool(torch.isfinite(x).all()) and rel <= tol))
+        del x, xp
     return rows
 
 
-def capture_dense_solves(eng, call):
+def capture_dense_solves(eng, call, check=False):
     """Run ``call()`` with the engine's batch-major K3 solves recorded:
-    returns (call's result, [(A, b), ...] of the systems K3 took)."""
+    returns (call's result, [(A, b), ...] of the systems K3 took); with
+    ``check``, each is held against its plain version as it comes
+    (``k3_operand_checks``) and the check rows are returned instead, so
+    that no operand outlives its solve (one call's operands at 1M cells
+    and RT3 would hold ~30 GB in f64)."""
     from dolfinx_eqlb_tpu_torch.eqlb.engine import k3_takes
 
     solves = []
@@ -2163,7 +2348,8 @@ def capture_dense_solves(eng, call):
 
     def record(A, b):
         if eng.solver == "kernel" and k3_takes(A.shape[-1]):
-            solves.append((A, b))
+            solves.extend(k3_operand_checks([(A, b)]) if check
+                          else [(A, b)])
         return solve(A, b)
 
     eng._dense_solve = record
@@ -2826,14 +3012,17 @@ PERFTEST_CSVS = {"elasticity": "artifacts/Perftest_elasticity.csv",
                  "biot": "artifacts/Perftest_biot.csv"}
 
 
-def phase_multigrid(device, n_levels_ela: int = 7, perftest_nrefs: int = 4,
+def phase_multigrid(device, n_levels_ela: int = 7, n_levels_up: int = 6,
+                    perftest_nrefs: int = 4,
                     poisson_levels=range(2, 7)) -> dict:
     """Phase 21: multigrid on the card, f64.  The P2 Poisson V-cycle MINRES
     on ``mesh_hierarchy(unit_square(4), L)`` for each L (mesh
     independence) and the V-cycle's symmetry (block sizes 1 and 2) on the
-    deepest; the MG elasticity CG (P2, u) and the MG Herrmann MINRES
-    (P3 x P2, u-p) on ``mesh_hierarchy(unit_square(8), 7)`` (the size of
-    ``unit_square(512)``), iterations and seconds; then ``run_perftest``
+    deepest; the MG elasticity CG (P2, u) on ``mesh_hierarchy(
+    unit_square(8), 7)`` (1,048,576 cells) and the MG Herrmann MINRES
+    (P3 x P2, u-p) on its first 6 levels (262,144 cells; the script's time
+    limit keeps the finest level out), iterations and seconds; then
+    ``run_perftest``
     for "elasticity" and "biot", orders 2-4, n0 = 8, nrefs = 4 (to 16,384
     cells; the script's time limit keeps the 65,536-cell rows out),
     repeats 1:
@@ -2890,6 +3079,11 @@ def phase_multigrid(device, n_levels_ela: int = 7, perftest_nrefs: int = 4,
                u_dofs=s.ndofs, u_finite=bool(torch.isfinite(uh.x).all()))
     del s, mg, uh
     torch.cuda.empty_cache()
+    meshes = meshes[:n_levels_up]
+    msh = meshes[-1]
+    f = expr_from_callable(f_body, msh, value_size=2)
+    ud = expr_from_callable(u_exact, msh, value_size=2)
+    ela["up_cells"] = msh.num_cells
     t0 = time.perf_counter()
     sup = ElasticitySolverUP(FunctionSpace(msh, "P", 3, vs=2),
                              FunctionSpace(msh, "P", 2), 1.0, device=device)
@@ -2947,10 +3141,10 @@ def report_multigrid(r: dict, nph: int, failures: list) -> None:
         f"{e['u_dofs']} dofs) {e['u_iterations']} iterations of "
         f"{e['u_maxiter']} in {e['u_solve_s']:.2f} s (set-up "
         f"{e['u_setup_s']:.2f} s; Jacobi CG at n = 500: "
-        f"{JACOBI_CG_ITS_N500}); Herrmann MINRES (P3 x P2, {e['up_dofs']} "
-        f"dofs) {e['up_iterations']} iterations of {e['up_maxiter']} in "
-        f"{e['up_s']:.2f} s with its set-up; peak {e['peak_mem_gib']:.2f} "
-        f"GiB")
+        f"{JACOBI_CG_ITS_N500}); Herrmann MINRES on {e['up_cells']} cells "
+        f"(P3 x P2, {e['up_dofs']} dofs) {e['up_iterations']} iterations "
+        f"of {e['up_maxiter']} in {e['up_s']:.2f} s with its set-up; peak "
+        f"{e['peak_mem_gib']:.2f} GiB")
     if not (e["u_iterations"] < e["u_maxiter"] and e["u_finite"]
             and e["up_iterations"] < e["up_maxiter"] and e["up_finite"]):
         failures.append("MG elasticity: a solve did not converge")
@@ -3547,6 +3741,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phase23", action="store_true",
                     help="only build the kernels and run phase 23 (the "
                     "port's bench in its four modes)")
+    ap.add_argument("--phase24", action="store_true",
+                    help="only build the kernels, run phase 8's K3 checks "
+                    "and timings at the wide route's shapes and phase 24 "
+                    "(the RT3 KKT path on the unstructured mesh)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3559,14 +3757,13 @@ def main(argv=None) -> int:
     from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
     from dolfinx_eqlb_tpu_torch.mesh import unit_square
     from dolfinx_eqlb_tpu_torch.ops import _build
-    from dolfinx_eqlb_tpu_torch.ops.patch_solve import k3_plan
 
     device = torch.device("cuda", 0)
     marks = [("start", time.perf_counter())]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     failures = []
-    nph = 23
+    nph = 24
 
     card = card_line()
     log(card)
@@ -3597,6 +3794,19 @@ def main(argv=None) -> int:
         return 1 if failures else 0
     if args.phase23:
         report_bench(phase_bench(args.n, card, device), nph, failures)
+        for f in failures:
+            print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
+        return 1 if failures else 0
+    if args.phase24:
+        log(f"[8/{nph}] K3 (the planned route and the shared route) vs "
+            f"plain at {K3_WIDE_SHAPES}:")
+        k3, k3_tiles = phase_k3(K3_WIDE_SHAPES, device, timer)
+        if not all(r["ok"] for r in k3 + k3_tiles):
+            failures.append("K3 disagrees with its plain version")
+        torch.cuda.empty_cache()
+        report_kkt_unstructured(
+            phase_kkt_unstructured(device, unstructured_n(args.n)), nph,
+            failures)
         for f in failures:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
         return 1 if failures else 0
@@ -3693,9 +3903,10 @@ def main(argv=None) -> int:
                        max_patches_per_bucket=CHUNK)
     t_tables64 = time.perf_counter() - t0
     shapes3 = kkt_shapes(eng64)
-    log(f"[8/{nph}] K3 (both routes) vs plain at the KKT path's shapes "
-        f"{shapes3} (f64 engine tables {t_tables64:.2f} s):")
-    k3, k3_tiles = phase_k3(shapes3, device, timer)
+    log(f"[8/{nph}] K3 (the planned route and the shared route) vs plain "
+        f"at the KKT path's shapes {shapes3} (f64 engine tables "
+        f"{t_tables64:.2f} s) and the wide route's {K3_WIDE_SHAPES}:")
+    k3, k3_tiles = phase_k3(shapes3 + K3_WIDE_SHAPES, device, timer)
     marks.append(("8", time.perf_counter()))
     if not all(r["ok"] for r in k3 + k3_tiles):
         failures.append("K3 disagrees with its plain version")
@@ -3703,27 +3914,7 @@ def main(argv=None) -> int:
 
     kkt = phase_kkt(eng64, msh, device)
     marks.append(("9", time.perf_counter()))
-    for dt, r in kkt.items():
-        log(f"[9/{nph}] KKT path unit_square({args.n}) RT2 {dt} 1 field: "
-            f"first call {r['first_call_s']:.3f} s; strict "
-            f"{r['strict_ms_median']:.3f} ms median, pipelined "
-            f"{r['pipelined_ms_min']:.3f} ms ({r['stages_ms']}); peak "
-            f"{r['peak_mem_gib']:.2f} GiB; launches {r['launches']}, K3 by "
-            f"route {r['k3_launches_by_route']}; max|x - plain f64| "
-            f"{r['max_abs_err_vs_plain_f64']:.3e} (limit "
-            f"{r['err_limit']:.3e}){'' if r['ok'] else '  FAILED'}")
-        log("    detail: " + json.dumps(r))
-        if not r["ok"]:
-            failures.append(f"KKT path {dt} disagrees with the plain route")
-        if r["launches"]["K3"] <= 0 or r["launches"]["K2"] <= 0:
-            failures.append(f"KKT path {dt} skipped a kernel: "
-                            f"{r['launches']}")
-        planned = {k3_plan(D, R, getattr(torch, dt)) for D, R, _ in shapes3}
-        stray = {rt: n for rt, n in r["k3_launches_by_route"].items()
-                 if n and rt not in planned}
-        if stray:
-            failures.append(f"KKT path {dt} launched K3 routes its shapes "
-                            f"do not plan ({planned}): {stray}")
+    report_kkt(kkt, f"unit_square({args.n}) RT2", shapes3, nph, failures, 9)
     torch.cuda.empty_cache()
 
     log(f"[10/{nph}] K4 vs plain on the f64 engine's combine tables:")
@@ -3820,6 +4011,11 @@ def main(argv=None) -> int:
     bench = phase_bench(args.n, card, device)
     marks.append(("23", time.perf_counter()))
     report_bench(bench, nph, failures)
+    torch.cuda.empty_cache()
+
+    ukkt = phase_kkt_unstructured(device, unstructured_n(args.n))
+    marks.append(("24", time.perf_counter()))
+    report_kkt_unstructured(ukkt, nph, failures)
 
     log("seconds by phase (host clock, each to the end of its run): "
         + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t) in
@@ -3871,6 +4067,9 @@ def main(argv=None) -> int:
     # slice 7: the bench's timed calls, one process per mode
     for mode, run in bench["runs"].items():
         paths[f"bench_{mode}"] = bench_launch_totals(run)
+    # K3's wide route: the RT3 KKT path on the unstructured mesh
+    for dt, r in ukkt["paths"].items():
+        paths[f"kkt_rt3_unstructured_{dt}"] = r["launches"]
 
     def total(kname):
         return sum(p[kname] for p in paths.values())
@@ -3895,6 +4094,8 @@ def main(argv=None) -> int:
                    "bench_biot_128_f32": bench["biot_kernel_checks"]}
     k3_stress_checks = (skkt["k3_checks"]
                         + skkt["reduced"]["boundary"]["k3_checks"])
+    k3_rt3_checks = [c for r in ukkt["paths"].values()
+                     for c in r["k3_checks"]]
     k3_stress_errs = [c["max_abs_err"] for c in k3_stress_checks]
     # phase 22 (a), (b): K1 and K2 on rank 0's operands of each dry-run
     # case and of the sharded stress headline
@@ -3902,8 +4103,13 @@ def main(argv=None) -> int:
     flux_checks.append(shard["full_width"]["kernel_checks"])
     k1_errs = ([r["max_abs_err"] for r in k1]
                + [c["max_abs_err"] for kc in flux_checks for c in kc["K1"]])
+    kkt_k2_checks = {
+        **{f"kkt_{dt}": r["k2_check"] for dt, r in kkt.items()},
+        **{f"kkt_rt3_unstructured_{dt}": r["k2_check"]
+           for dt, r in ukkt["paths"].items()}}
     k2_errs = ([r["max_abs_err"] for r in k2]
-               + [kc["K2"]["max_abs_err"] for kc in flux_checks])
+               + [kc["K2"]["max_abs_err"] for kc in flux_checks]
+               + [c["max_abs_err"] for c in kkt_k2_checks.values()])
     entries = [
         kernel_entry("K1 batched_kkt_solve_bl", K1_SOURCE, K1_REPLACES,
                      total("K1"), k1_row, k1_errs),
@@ -3912,7 +4118,8 @@ def main(argv=None) -> int:
                      k2_errs),
         kernel_entry("K3 batched_kkt_solve", K3_SOURCE, K3_REPLACES,
                      total("K3"), biggest(k3, "float64"),
-                     [r["max_abs_err"] for r in k3] + k3_stress_errs),
+                     [r["max_abs_err"] for r in k3] + k3_stress_errs
+                     + [c["max_abs_err"] for c in k3_rt3_checks]),
         kernel_entry("K4 ds_combine_gather", K4_SOURCE, K4_REPLACES,
                      total("K4"), k4[0], [r["max_abs_err"] for r in k4]),
     ]
@@ -3966,7 +4173,11 @@ def main(argv=None) -> int:
     entries[1]["biot_operands"] = {
         name: {key: kc["K2"][key] for key in ("dtype", "ndofs", "bitwise")}
         for name, kc in biot_checks.items()}
-    # K3's numbers are its register route's; the shared route beside them
+    entries[1]["kkt_operands"] = {
+        name: {key: c[key] for key in ("dtype", "ndofs", "L", "bitwise")}
+        for name, c in kkt_k2_checks.items()}
+    # K3's numbers are those of its largest f64 shape, D = 105 on the wide
+    # route; the shared route beside them, and every timed shape
     k3_row = biggest(k3, "float64")
     entries[2].update(
         k3_route=k3_row["route"], shared_ms=k3_row["shared_ms"],
@@ -3975,12 +4186,21 @@ def main(argv=None) -> int:
             **{name: kkt[dt]["k3_launches_by_route"]
                for name, dt in (("kkt_f64", "float64"),
                                 ("kkt_f32", "float32"))},
+            **{f"kkt_rt3_unstructured_{dt}": r["k3_launches_by_route"]
+               for dt, r in ukkt["paths"].items()},
             "stress_kkt_f64": skkt["k3_launches_by_route"],
             **{f"stress_reduced_{name}_f64": red["k3_launches_by_route"]
                for name, red in skkt["reduced"].items()}},
         stress_operands=[{key: c[key] for key in (
             "D", "R", "X", "route", "max_rel_err")}
-            for c in k3_stress_checks])
+            for c in k3_stress_checks],
+        rt3_unstructured_operands=[{key: c[key] for key in (
+            "dtype", "D", "R", "X", "route", "max_rel_err")}
+            for c in k3_rt3_checks],
+        shapes=[{key: r[key] for key in (
+            "dtype", "D", "R", "X", "route", "ms", "shared_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_rel_err")}
+            for r in k3])
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

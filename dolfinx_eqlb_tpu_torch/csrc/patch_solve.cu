@@ -524,66 +524,95 @@ int launch_bm(const void* A, const void* b, void* x, int64_t N, int64_t D,
 // ~1 ms per 131072 systems at D = 56 in f64) but shared-memory traffic and
 // barriers: every multiply-add of the trailing update does two shared loads
 // and a store (~175k accesses per system at D = 56) and each system crosses
-// 4D block barriers.  Design: one system per block of 128 threads laid out
-// TR x TC = 8 x 16 over [A | b] (W = D + R columns).  Thread (ty, tx) owns
-// rows i = ty (mod 8) and columns c = tx (mod 16) and keeps its MR x MC
-// values in registers (MR, MC template parameters, so the tile never leaves
-// them); the loads go straight from device memory, a half-warp reading 16
-// consecutive values of a row.  Elimination step j has ONE barrier: before
+// 4D block barriers.  Design: one system per block of TR x TC threads laid
+// out over [A | b] (W = D + R columns); the register route is TR x TC =
+// 8 x 16 (128 threads).  Thread (ty, tx) owns rows i = ty (mod TR) and
+// columns c = tx (mod TC) and keeps its MR x MC values in registers (MR, MC
+// template parameters, so the tile never leaves them); the loads go
+// straight from device memory, TC consecutive lanes reading TC consecutive
+// values of a row.  Elimination step j has ONE barrier: before
 // it the owners of row j write it, scaled by the pivot's reciprocal, to a
 // shared U | y store (U[j, j] holds the reciprocal itself), and the owners
 // of column j write it to a double-buffered column (the buffer of step j is
 // rewritten at step j + 2, after every thread has passed the barrier of
 // step j + 1).  After it every thread updates its tile,
 // a[i][c] -= col[i] U[j, c], with at most MR x MC FMAs against MR + MC
-// shared loads, all broadcasts or 16 consecutive words.  The update reads
+// shared loads, all broadcasts or TC consecutive words.  The update reads
 // without bounds checks: a row i <= j or a column c <= j of a tile is dead
 // by then (written out, or never read).  Row j's slot in the store spans
-// the 16 MC columns a tile can name (plus one, an odd row stride against
-// bank conflicts), and its owners write all of the slot's columns they hold (zero outside j <= c < W) once, at step j,
-// before its barrier; so every read is of a value written before the
-// barrier it follows, and no slot is written again: the kernel has no
-// shared-memory race and reads nothing uninitialised.  The step loop is
-// split into blocks of 8 (one
+// the TC MC columns a tile can name (plus one, an odd row stride against
+// bank conflicts), and its owners write all of the slot's columns they
+// hold (zero outside j <= c < W) once, at step j, before its barrier; so
+// every read is of a value written before the barrier it follows, and no
+// slot is written again: the kernel has no shared-memory race and reads
+// nothing uninitialised.  The step loop is split into blocks of TR (one
 // thread row's worth), so the row and column blocks a step leaves behind
 // are dropped at compile time.  Back substitution runs in one warp from the
-// scaled store, with no block barrier: lane l owns rows l and l + 32; for j
+// scaled store, with no block barrier: lane l owns rows l + 32 s; for j
 // descending the owner's value is x_j, broadcast by a shuffle, and every
 // lane subtracts U[i, j] x_j from its rows i < j.  x is written once.
-// On the H100 the kernel is bound by instruction issue and the latency of
-// each step's barrier-to-barrier chain, not by HBM or the FP64 pipe; the
-// register budget per tile is cut so that more blocks share an SM
-// (reg_min_blocks below).  Two steps per barrier, overlapping the next
-// system's load (cp.async / TMA), several small systems per block and
-// tensor cores are later work.
+// On the H100 the kernel is bound by the latency of each step's chain (the
+// pivot's shuffle and reciprocal, the store, the barrier, the shared
+// loads), not by HBM or the FP64 pipe; the register budget per tile is cut
+// so that more blocks share an SM (reg_min_blocks below).  Two steps a
+// barrier (row j + 1 taking step j by shuffles inside its warp, bitwise the
+// same result) was slower at every tile measured: the two reciprocals in
+// series cost more than the barrier saved.  Overlapping the next system's
+// load (cp.async / TMA), several small systems per block and tensor cores
+// are later work.
+//
+// K3, wide route: the same kernel on a 16 x 16 thread layout (256 threads)
+// for 64 < D <= 112, the KKT systems of RT3 on unstructured meshes
+// (D = 75, 90, 105) and of RT4 (D = 104, 108), which the 8 x 16 layout
+// would cover only with 14 x 7 = 98 values a thread (~196 registers in
+// f64, spilled).  Twice the thread rows halve MR: tiles 5 x 5, 6 x 6 and
+// 7 x 7 cover D + R <= 80, 96 and 112 with at most 49 values a thread,
+// which fit the 128 registers of two blocks an SM in f64.  What bounds the
+// shared-memory route it replaces for these D is the same as at D <= 64:
+// at D = 105 it makes ~D^3 shared accesses and ~4D = 420 block barriers a
+// system; here a step costs one barrier and MR + MC shared loads a
+// thread.  The U | y store grows to D (16 MC + 1) values (97 KB at
+// D = 105 in f64), dynamic shared memory past 48 KB; with the registers it
+// allows two f64 blocks an SM at D > 80.  Tried beside it at
+// D = 75 / 90 / 105 on the H100 and not kept (PERF.md): 16 x 32 threads
+// (7 x 4 tiles), slower at every D; 8 x 16 with tiles up to 14 x 7, which
+// spill in f64 and lose in f32 and at D = 75; a blocked LU on the FP64
+// tensor cores with its trailing matrix in shared memory, slower at every
+// D (bound by the shared-memory traffic of the trailing updates).
 
-constexpr int kRegTR = 8;   // thread rows of a block
-constexpr int kRegTC = 16;  // thread columns of a block (a half-warp)
-
-// per tile: the blocks per SM the register budget is cut for, and the
-// unroll of the step loop (H100 measurements, PERF.md); no tile spills
-template <typename T, int MR, int MC>
+// per layout and tile: the blocks per SM the register budget is cut for,
+// and the unroll of the step loop (H100 measurements, PERF.md); no tile
+// spills
+template <typename T, int TR, int MR, int MC>
 constexpr int reg_min_blocks() {
   constexpr int vals = MR * MC;
+  if (TR == 16) {  // wide route, 256 threads a block
+    if (sizeof(T) == 8) return vals <= 25 ? 3 : 2;
+    return vals <= 36 ? 4 : 3;
+  }
   if (sizeof(T) == 8) return vals <= 8 ? 12 : vals <= 28 ? 6 : 4;
   return vals <= 8 ? 16 : vals <= 28 ? 8 : 4;
 }
 
-// f64 <7, 4> spills 48 bytes at unroll 2 under its 80-register cap
-template <typename T, int MR, int MC>
+// f64 <8, 7, 4> spills 48 bytes at unroll 2 under its 80-register cap
+template <typename T, int TR, int MR, int MC>
 constexpr int reg_unroll() {
   constexpr int vals = MR * MC;
+  if (TR == 16) return sizeof(T) == 8 ? 1 : 2;
   return vals <= 8 ? 8 : (sizeof(T) == 8 && vals <= 28) ? 1 : 2;
 }
 
-template <typename T, int MR, int MC,
-          int kMinBlocks = reg_min_blocks<T, MR, MC>(),
-          int kUnroll = reg_unroll<T, MR, MC>()>
-__global__ void __launch_bounds__(kRegTR * kRegTC, kMinBlocks)
+template <typename T, int TR, int TC, int MR, int MC,
+          int kMinBlocks = reg_min_blocks<T, TR, MR, MC>(),
+          int kUnroll = reg_unroll<T, TR, MR, MC>()>
+__global__ void __launch_bounds__(TR * TC, kMinBlocks)
 lu_solve_bm_reg_kernel(const T* __restrict__ A, const T* __restrict__ b,
                        T* __restrict__ x, int D, int R) {
-  constexpr int kRows = kRegTR * MR;  // rows the tile covers, >= D
-  constexpr int kCols = kRegTC * MC;  // columns the tile covers, >= W
+  // a thread row is TC lanes of one warp, and a block of TR steps spans
+  // whole thread columns
+  static_assert(TC <= 32 && 32 % TC == 0 && TC % TR == 0, "layout");
+  constexpr int kRows = TR * MR;  // rows the tile covers, >= D
+  constexpr int kCols = TC * MC;  // columns the tile covers, >= W
   // the store's row stride: odd, so the back substitution's reads down a
   // column (one row a lane) fall in distinct banks
   constexpr int kLd = kCols + 1;
@@ -592,8 +621,8 @@ lu_solve_bm_reg_kernel(const T* __restrict__ A, const T* __restrict__ b,
   T* U = colbuf + 2 * kRows;  // D x kLd: [U | y] scaled, row j at j
   const int W = D + R;
   const int tid = threadIdx.x;
-  const int ty = tid / kRegTC, tx = tid % kRegTC;
-  const int half = tid & 16;  // the first lane of this thread's half-warp
+  const int ty = tid / TC, tx = tid % TC;
+  const int lane0 = tid & 31 & ~(TC - 1);  // first lane of this thread row
   const int64_t p = blockIdx.x;
   const T* Ap = A + p * D * D;
   const T* bp = b + p * D * R;
@@ -601,49 +630,50 @@ lu_solve_bm_reg_kernel(const T* __restrict__ A, const T* __restrict__ b,
   T a[MR][MC];
 #pragma unroll
   for (int r = 0; r < MR; ++r) {
-    const int i = ty + kRegTR * r;
+    const int i = ty + TR * r;
 #pragma unroll
     for (int q = 0; q < MC; ++q) {
-      const int c = tx + kRegTC * q;
+      const int c = tx + TC * q;
       const T* src = c < D ? Ap + i * D + c : bp + i * R + (c - D);
       a[r][q] = (i < D && c < W) ? *src : T(0);
     }
   }
 
-  // column elimination fused with forward substitution; step j = 8 rb + jj
-  // is row rb of thread row jj and column rb / 2 of thread column j % 16
+  // column elimination fused with forward substitution; step
+  // j = TR rb + jj is row rb of thread row jj and column rb / (TC / TR) of
+  // thread column j % TC
 #pragma unroll
   for (int rb = 0; rb < MR; ++rb) {
-    constexpr int kQ = kRegTC / kRegTR;
+    constexpr int kQ = TC / TR;
     const int qb = rb / kQ;
 #pragma unroll kUnroll
-    for (int jj = 0; jj < kRegTR; ++jj) {
-      const int j = kRegTR * rb + jj;
+    for (int jj = 0; jj < TR; ++jj) {
+      const int j = TR * rb + jj;
       if (j >= D) break;
       T* col = colbuf + (j & 1) * kRows;
-      // every half-warp fetches its row's entry in column j; in the
-      // half-warp of row j that is the pivot
-      const T piv = __shfl_sync(0xffffffffu, a[rb][qb], half | (j % kRegTC));
+      // every thread row fetches its entry in column j; in the thread row
+      // of row j that is the pivot
+      const T piv = __shfl_sync(0xffffffffu, a[rb][qb], lane0 | (j % TC));
       if (ty == jj) {
         const T inv = T(1) / piv;
 #pragma unroll
         for (int q = qb; q < MC; ++q) {
-          const int c = tx + kRegTC * q;
+          const int c = tx + TC * q;
           U[j * kLd + c] =
               c == j ? inv : (c > j && c < W) ? a[rb][q] * inv : T(0);
         }
       }
-      if (tx == j % kRegTC) {
+      if (tx == j % TC) {
 #pragma unroll
-        for (int r = rb; r < MR; ++r) col[ty + kRegTR * r] = a[r][qb];
+        for (int r = rb; r < MR; ++r) col[ty + TR * r] = a[r][qb];
       }
       __syncthreads();
       T u[MC];
 #pragma unroll
-      for (int q = qb; q < MC; ++q) u[q] = U[j * kLd + tx + kRegTC * q];
+      for (int q = qb; q < MC; ++q) u[q] = U[j * kLd + tx + TC * q];
 #pragma unroll
       for (int r = rb; r < MR; ++r) {
-        const T l = col[ty + kRegTR * r];
+        const T l = col[ty + TR * r];
 #pragma unroll
         for (int q = qb; q < MC; ++q) a[r][q] = fma(-l, u[q], a[r][q]);
       }
@@ -685,29 +715,37 @@ lu_solve_bm_reg_kernel(const T* __restrict__ A, const T* __restrict__ b,
   }
 }
 
-template <typename T, int MR, int MC>
+template <typename T, int TR, int TC, int MR, int MC>
 int launch_bm_reg_tile(const void* A, const void* b, void* x, int64_t N,
                        int64_t D, int64_t R, cudaStream_t stream) {
-  if (N <= 0 || N > 0x7fffffff || D < 1 || R < 1 || D > kRegTR * MR ||
-      D + R > kRegTC * MC)
+  if (N <= 0 || N > 0x7fffffff || D < 1 || R < 1 || D > TR * MR ||
+      D + R > TC * MC)
     return static_cast<int>(cudaErrorInvalidValue);
-  // column buffers and [U | y] at row stride 16 MC + 1: <= 42 KB for every
-  // tile, under the 48 KB default
-  const int64_t smem = (2 * kRegTR * MR + D * (kRegTC * MC + 1)) *
+  // column buffers and [U | y] at row stride TC MC + 1: <= 42 KB for every
+  // register tile, up to 101 KB for the wide route's 7 x 7 in f64
+  const int64_t smem = (2 * TR * MR + D * (TC * MC + 1)) *
                        static_cast<int64_t>(sizeof(T));
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  lu_solve_bm_reg_kernel<T, MR, MC>
-      <<<static_cast<unsigned>(N), kRegTR * kRegTC, static_cast<size_t>(smem),
-         stream>>>(static_cast<const T*>(A), static_cast<const T*>(b),
-                   static_cast<T*>(x), static_cast<int>(D),
-                   static_cast<int>(R));
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = lu_solve_bm_reg_kernel<T, TR, TC, MR, MC>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(N), TR * TC, static_cast<size_t>(smem),
+           stream>>>(static_cast<const T*>(A), static_cast<const T*>(b),
+                     static_cast<T*>(x), static_cast<int>(D),
+                     static_cast<int>(R));
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tiles (MR, MC) built, smallest first: the one list of them in C.
-// ops/patch_solve.py::K3_REG_TILES names the same, and the wrapper holds
-// it against eqlb_lu_solve_bm_reg_tiles before its first launch.
+// The tiles (MR, MC) built, smallest first, of the register route (8 x 16
+// threads) and of the wide route (16 x 16): the one list of each in C.
+// ops/patch_solve.py::K3_REG_TILES and K3_WIDE_TILES name the same, and the
+// wrapper holds each against eqlb_lu_solve_bm_reg_tiles /
+// eqlb_lu_solve_bm_wide_tiles before the route's first launch.
 #define EQLB_K3_REG_TILES(X) X(4, 2) X(7, 4) X(8, 5)
+#define EQLB_K3_WIDE_TILES(X) X(5, 5) X(6, 6) X(7, 7)
 
 template <typename T>
 int launch_bm_reg(const void* A, const void* b, void* x, int64_t N, int64_t D,
@@ -715,8 +753,21 @@ int launch_bm_reg(const void* A, const void* b, void* x, int64_t N, int64_t D,
   const auto s = static_cast<cudaStream_t>(stream);
 #define EQLB_K3_DISPATCH(MR, MC) \
   if (mr == MR && mc == MC)      \
-    return launch_bm_reg_tile<T, MR, MC>(A, b, x, N, D, R, s);
+    return launch_bm_reg_tile<T, 8, 16, MR, MC>(A, b, x, N, D, R, s);
   EQLB_K3_REG_TILES(EQLB_K3_DISPATCH)
+#undef EQLB_K3_DISPATCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int launch_bm_wide(const void* A, const void* b, void* x, int64_t N,
+                   int64_t D, int64_t R, int64_t mr, int64_t mc,
+                   void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+#define EQLB_K3_DISPATCH(MR, MC) \
+  if (mr == MR && mc == MC)      \
+    return launch_bm_reg_tile<T, 16, 16, MR, MC>(A, b, x, N, D, R, s);
+  EQLB_K3_WIDE_TILES(EQLB_K3_DISPATCH)
 #undef EQLB_K3_DISPATCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -794,15 +845,37 @@ int eqlb_lu_solve_bm_reg_f64(const void* A, const void* b, void* x, int64_t N,
   return launch_bm_reg<double>(A, b, x, N, D, R, mr, mc, stream);
 }
 
+int eqlb_lu_solve_bm_wide_f32(const void* A, const void* b, void* x,
+                              int64_t N, int64_t D, int64_t R, int64_t mr,
+                              int64_t mc, void* stream) {
+  return launch_bm_wide<float>(A, b, x, N, D, R, mr, mc, stream);
+}
+
+int eqlb_lu_solve_bm_wide_f64(const void* A, const void* b, void* x,
+                              int64_t N, int64_t D, int64_t R, int64_t mr,
+                              int64_t mc, void* stream) {
+  return launch_bm_wide<double>(A, b, x, N, D, R, mr, mc, stream);
+}
+
+#define EQLB_K3_PAIR(MR, MC) MR, MC,
+
 // writes up to cap values MR0, MC0, MR1, MC1, ... of the built register
 // tiles to out and returns the number of tiles
 int eqlb_lu_solve_bm_reg_tiles(int64_t* out, int64_t cap) {
-#define EQLB_K3_PAIR(MR, MC) MR, MC,
   const int64_t tiles[] = {EQLB_K3_REG_TILES(EQLB_K3_PAIR)};
-#undef EQLB_K3_PAIR
   constexpr int64_t n = sizeof(tiles) / sizeof(tiles[0]);
   for (int64_t e = 0; e < n && e < cap; ++e) out[e] = tiles[e];
   return static_cast<int>(n / 2);
 }
+
+// the same for the wide route's tiles
+int eqlb_lu_solve_bm_wide_tiles(int64_t* out, int64_t cap) {
+  const int64_t tiles[] = {EQLB_K3_WIDE_TILES(EQLB_K3_PAIR)};
+  constexpr int64_t n = sizeof(tiles) / sizeof(tiles[0]);
+  for (int64_t e = 0; e < n && e < cap; ++e) out[e] = tiles[e];
+  return static_cast<int>(n / 2);
+}
+
+#undef EQLB_K3_PAIR
 
 }  // extern "C"

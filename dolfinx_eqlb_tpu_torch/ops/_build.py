@@ -64,6 +64,11 @@ _SIGNATURES = {
     "eqlb_lu_solve_bm_reg_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (out, cap): the register route's built tiles, MR0, MC0, MR1, ...
     "eqlb_lu_solve_bm_reg_tiles": [_P, _I],
+    # (A, b, x, N, D, R, MR, MC, stream): K3's wide route (16 x 16 threads)
+    "eqlb_lu_solve_bm_wide_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "eqlb_lu_solve_bm_wide_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (out, cap): the wide route's built tiles, MR0, MC0, MR1, ...
+    "eqlb_lu_solve_bm_wide_tiles": [_P, _I],
     # (flat, src, out, R, L, ndofs, nfk, stream); f64 only
     "eqlb_ds_combine_gather_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
 }

@@ -19,11 +19,13 @@ and how its design answers.
   (``k1_block_fits``); the global route (one thread per system,
   elimination in place in a global scratch, any D) takes what is left.
 * K3, ``batched_kkt_solve`` (entry ``batched_kkt_solve``): batch-major
-  A (..., P, D, D), the KKT mode's full patch systems, D in the tens; one
-  thread block per system, by one of two routes that ``k3_plan`` picks
-  from the shape: for D <= 64 the register route (each thread holds a
-  tile of [A | b] in registers, one barrier per elimination step), else
-  the shared-memory route ([A | b] staged in shared memory).
+  A (..., P, D, D), the KKT mode's full patch systems, D up to 110; one
+  thread block per system, by one of three routes that ``k3_plan`` picks
+  from the shape: for D <= 64 the register route (each thread of 8 x 16
+  holds a tile of [A | b] in registers, one barrier per elimination step),
+  for 64 < D <= 110 the wide route (the same kernel on 16 x 16 threads),
+  and for what neither covers the shared-memory route ([A | b] staged in
+  shared memory).
 
 Pivot-free LU is the contract, and it is sound for the callers' systems:
 the semi-explicit engine's reduced matrices are SPD, with identity rows on
@@ -50,7 +52,7 @@ __all__ = ["batched_kkt_solve_bl", "batched_kkt_solve_bl_plain", "k1_plan",
            "K1_ROUTES", "K1_TILES", "K1_TILE_MAX_D", "K1_TILE_MAX_D_R1",
            "K1_TILE_MIN_X", "K1_TILE_SMALL_D",
            "batched_kkt_solve", "batched_kkt_solve_plain", "k3_plan",
-           "K3_REG_TILES", "K3_ROUTES"]
+           "K3_REG_TILES", "K3_WIDE_TILES", "K3_ROUTES"]
 
 _FUNCS = {torch.float32: "eqlb_lu_solve_bl_f32",
           torch.float64: "eqlb_lu_solve_bl_f64"}
@@ -62,6 +64,8 @@ _FUNCS_BM = {torch.float32: "eqlb_lu_solve_bm_f32",
              torch.float64: "eqlb_lu_solve_bm_f64"}
 _FUNCS_BM_REG = {torch.float32: "eqlb_lu_solve_bm_reg_f32",
                  torch.float64: "eqlb_lu_solve_bm_reg_f64"}
+_FUNCS_BM_WIDE = {torch.float32: "eqlb_lu_solve_bm_wide_f32",
+                  torch.float64: "eqlb_lu_solve_bm_wide_f64"}
 # dynamic shared memory one thread block can hold: D (D + R) values of
 # K3's shared route, D^2 nt values of K1's tile route, D (D + R) of K1's
 # block route
@@ -106,12 +110,24 @@ K1_TILE_SMALL_D = 6
 # EQLB_K3_REG_TILES in csrc/patch_solve.cu; the first launch checks that
 # the library was built with it.
 K3_REG_TILES = {"reg4x2": (4, 2), "reg7x4": (7, 4), "reg8x5": (8, 5)}
-K3_ROUTES = (*K3_REG_TILES, "shared")
+# K3's wide route: the same kernel on 16 x 16 threads, tiles (MR, MC)
+# covering D <= 16 MR rows and W <= 16 MC columns, for the systems past
+# the register tiles: at R <= 2 every D of 65-110 (the KKT systems of RT3
+# on unstructured meshes, D = 75 / 90 / 105, take 5 x 5, 6 x 6 and 7 x 7).
+# The same list is EQLB_K3_WIDE_TILES in csrc/patch_solve.cu, checked at
+# the first launch like the register tiles.
+K3_WIDE_TILES = {"wide5x5": (5, 5), "wide6x6": (6, 6), "wide7x7": (7, 7)}
+K3_ROUTES = (*K3_REG_TILES, *K3_WIDE_TILES, "shared")
+# every tiled route, smallest first, and the thread rows of its layout (16
+# thread columns in both)
+_K3_TILES = {**K3_REG_TILES, **K3_WIDE_TILES}
+_TILE_ROWS = {**dict.fromkeys(K3_REG_TILES, 8),
+              **dict.fromkeys(K3_WIDE_TILES, 16)}
 
 
-def _reg_covers(route: str, D: int, R: int) -> bool:
-    mr, mc = K3_REG_TILES[route]
-    return D <= 8 * mr and D + R <= 16 * mc
+def _tile_covers(route: str, D: int, R: int) -> bool:
+    mr, mc = _K3_TILES[route]
+    return D <= _TILE_ROWS[route] * mr and D + R <= 16 * mc
 
 
 def _shared_fits(D: int, R: int, dtype: torch.dtype) -> bool:
@@ -120,11 +136,12 @@ def _shared_fits(D: int, R: int, dtype: torch.dtype) -> bool:
 
 def k3_plan(D: int, R: int, dtype: torch.dtype) -> str:
     """K3's route for D x D systems with R right-hand sides: the smallest
-    register tile that covers [A | b] (``K3_REG_TILES``), else ``"shared"``
-    (the shared-memory kernel, up to ``SMEM_LIMIT`` bytes of [A | b]);
-    raises if neither takes the system."""
-    for route in K3_REG_TILES:
-        if _reg_covers(route, D, R):
+    register tile that covers [A | b] (``K3_REG_TILES``), else the
+    smallest wide tile (``K3_WIDE_TILES``), else ``"shared"`` (the
+    shared-memory kernel, up to ``SMEM_LIMIT`` bytes of [A | b]); raises if
+    none takes the system."""
+    for route in _K3_TILES:
+        if _tile_covers(route, D, R):
             return route
     if _shared_fits(D, R, dtype):
         return "shared"
@@ -316,20 +333,31 @@ def batched_kkt_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _solve_route(A, b, None)
 
 
+def _check_tile_list(query, planned: dict, what: str) -> None:
+    """Raise unless ``query`` (the library's tile list of a tiled route,
+    MR0, MC0, MR1, ...) reports the tiles of ``planned``, in order."""
+    buf = (ctypes.c_int64 * (2 * len(planned) + 2))()
+    n = query(ctypes.addressof(buf), len(buf))
+    built = [tuple(buf[2 * e:2 * e + 2]) for e in range(min(n, len(buf) // 2))]
+    if n != len(planned) or built != list(planned.values()):
+        raise RuntimeError(
+            f"the kernel library was built with {what} tiles {built} "
+            f"({n}), the wrapper plans {list(planned.values())}")
+    _tiles_checked_k3.add(what)
+
+
 def _check_reg_tiles(lib) -> None:
     """Raise unless the library's register tiles are ``K3_REG_TILES``."""
-    global _reg_tiles_checked
-    buf = (ctypes.c_int64 * (2 * len(K3_REG_TILES) + 2))()
-    n = lib.eqlb_lu_solve_bm_reg_tiles(ctypes.addressof(buf), len(buf))
-    built = [tuple(buf[2 * e:2 * e + 2]) for e in range(min(n, len(buf) // 2))]
-    if n != len(K3_REG_TILES) or built != list(K3_REG_TILES.values()):
-        raise RuntimeError(
-            f"the kernel library was built with register tiles {built} "
-            f"({n}), the wrapper plans {list(K3_REG_TILES.values())}")
-    _reg_tiles_checked = True
+    _check_tile_list(lib.eqlb_lu_solve_bm_reg_tiles, K3_REG_TILES, "register")
 
 
-_reg_tiles_checked = False
+def _check_wide_tiles(lib) -> None:
+    """Raise unless the library's wide tiles are ``K3_WIDE_TILES``."""
+    _check_tile_list(lib.eqlb_lu_solve_bm_wide_tiles, K3_WIDE_TILES, "wide")
+
+
+# the tiled routes whose tile list was held against the library
+_tiles_checked_k3: set = set()
 
 
 def _solve_route(A: torch.Tensor, b: torch.Tensor,
@@ -354,7 +382,7 @@ def _solve_route(A: torch.Tensor, b: torch.Tensor,
     elif route not in K3_ROUTES:
         raise ValueError(f"unknown K3 route {route!r}; one of {K3_ROUTES}")
     elif not (_shared_fits(D, R, A.dtype) if route == "shared"
-              else _reg_covers(route, D, R)):
+              else _tile_covers(route, D, R)):
         raise ValueError(f"K3 route {route!r} does not take D={D}, R={R}")
     if A.device.type == "cpu":
         return batched_kkt_solve_plain(A, b)
@@ -371,13 +399,20 @@ def _solve_route(A: torch.Tensor, b: torch.Tensor,
             name = _FUNCS_BM[A.dtype]
             code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
                                       x.data_ptr(), N, D, R, stream)
-        else:
-            if not _reg_tiles_checked:
+        elif route in K3_REG_TILES:
+            if "register" not in _tiles_checked_k3:
                 _check_reg_tiles(lib)
             name = _FUNCS_BM_REG[A.dtype]
             code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
                                       x.data_ptr(), N, D, R,
                                       *K3_REG_TILES[route], stream)
+        else:
+            if "wide" not in _tiles_checked_k3:
+                _check_wide_tiles(lib)
+            name = _FUNCS_BM_WIDE[A.dtype]
+            code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
+                                      x.data_ptr(), N, D, R,
+                                      *K3_WIDE_TILES[route], stream)
         _build.check(code, name)
     batched_kkt_solve.launches += 1
     batched_kkt_solve.launches_by_route[route] += 1

@@ -32,7 +32,8 @@ from dolfinx_eqlb_tpu_torch.mesh import unit_square, unit_square_unstructured
 from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
     K1_ROUTES, K1_TILE_MAX_D, K1_TILE_MAX_D_R1, K1_TILE_MIN_X,
     K1_TILE_SMALL_D, K1_TILES,
-    K3_REG_TILES, SMEM_LIMIT, _check_reg_tiles, _check_tiles, _solve_route,
+    K3_REG_TILES, K3_WIDE_TILES, SMEM_LIMIT, _check_reg_tiles, _check_tiles,
+    _check_wide_tiles, _solve_route,
     _solve_route_bl, batched_kkt_solve, batched_kkt_solve_bl,
     batched_kkt_solve_bl_plain, batched_kkt_solve_plain, k1_block_fits,
     k1_block_threads, k1_plan, k1_tile_threads, k3_plan,
@@ -313,11 +314,14 @@ def _spd_batch_bm(lead, D, R, seed):
     return A, rng.normal(size=(*lead, D, R))
 
 
-@pytest.mark.parametrize("D", [16, 28, 32, 33, 56, 64, 65])
+@pytest.mark.parametrize("D", [16, 28, 32, 33, 56, 64, 65, 75, 90, 104, 105,
+                               108, 110])
 def test_k3_plain_matches_pallas_and_linalg(D):
     """Leading axes (2, P) are folded, as the KKT mode's (n_rhs, P).  D = 32,
     33, 64 and 65 sit on the boundaries of K3's register tiles and of its
-    register route."""
+    register route; 75, 90 and 105 are the KKT sizes of RT3 on unstructured
+    meshes, 104 and 108 those of RT4, and 110 the last D of the size rule,
+    all on the wide route."""
     A, b = _spd_batch_bm((2, 9), D, 1, seed=D)
     x_jax = np.asarray(jax_k3(jnp.asarray(A, jnp.float64),
                               jnp.asarray(b, jnp.float64)))
@@ -343,29 +347,50 @@ def test_k3_wrapper_on_cpu_is_the_plain_version():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("R", [1, 2])
 def test_k3_plan_covers_every_size(R, dtype):
-    """Every D of the KKT size rule (D <= 110) has a route: a register tile
-    of at most 40 values a thread covering all D rows and D + R columns of
-    the 8 x 16 thread layout, the smallest that does, for D <= 64; above,
-    the shared-memory route within its limit."""
-    tiles = list(K3_REG_TILES.values())
-    assert all(mr * mc <= 40 for mr, mc in tiles)
+    """Every D of the KKT size rule (D <= 110) has a tiled route: for
+    D <= 64 a register tile of at most 40 values a thread covering all D
+    rows and D + R columns of the 8 x 16 thread layout, the smallest that
+    does; for D = 65 ... 110 a wide tile of at most 49 values a thread
+    covering them on 16 x 16 threads, the smallest that does.  The
+    shared-memory route takes none of them."""
     for D in range(1, 111):
         route = k3_plan(D, R, dtype)
-        if D <= 64:
-            mr, mc = K3_REG_TILES[route]
-            assert D <= 8 * mr and D + R <= 16 * mc, (D, route)
-            smaller = tiles[:tiles.index((mr, mc))]
-            assert not any(D <= 8 * a and D + R <= 16 * c for a, c in smaller)
-        else:
-            assert route == "shared", (D, route)
-            assert D * (D + R) * dtype.itemsize <= SMEM_LIMIT
+        layout, rows = ((K3_REG_TILES, 8) if D <= 64
+                        else (K3_WIDE_TILES, 16))
+        assert route in layout, (D, route)
+        tiles = list(layout.values())
+        assert all(mr * mc <= (40 if rows == 8 else 49) for mr, mc in tiles)
+        mr, mc = layout[route]
+        assert D <= rows * mr and D + R <= 16 * mc, (D, route)
+        smaller = tiles[:tiles.index((mr, mc))]
+        assert not any(D <= rows * a and D + R <= 16 * c for a, c in smaller)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_plan_shared_only_past_wide(dtype):
+    """The shared-memory route takes a shape only where no wide tile covers
+    it (D > 112 or D + R > 112) and [A | b] fits a block; past that k3_plan
+    raises."""
+    biggest = max(K3_WIDE_TILES.values())
+    for D in range(100, 170):
+        for R in (1, 2, 8):
+            covered = D <= 16 * biggest[0] and D + R <= 16 * biggest[1]
+            fits = D * (D + R) * dtype.itemsize <= SMEM_LIMIT
+            if covered:
+                assert k3_plan(D, R, dtype) in K3_WIDE_TILES, (D, R)
+            elif fits:
+                assert k3_plan(D, R, dtype) == "shared", (D, R)
+            else:
+                with pytest.raises(ValueError):
+                    k3_plan(D, R, dtype)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3])
 @pytest.mark.parametrize("mesh", ["crossed", "unstructured"])
 def test_k3_plan_takes_kkt_shapes_on_registers(mesh, k):
     """The KKT systems of the KKT tests' meshes that K3 takes
-    (``k3_takes``) go to a register tile whenever D <= 64."""
+    (``k3_takes``) go to a register tile whenever D <= 64 and to a wide
+    tile above; none to the shared-memory route."""
     msh = unit_square(3) if mesh == "crossed" else unit_square_unstructured(4)
     eng = EqlbEngine(FunctionSpace(msh, "RT", k), build_patches(msh),
                      dtype=torch.float64, device="cpu")
@@ -375,7 +400,8 @@ def test_k3_plan_takes_kkt_shapes_on_registers(mesh, k):
     for D in taken:
         for dtype in (torch.float32, torch.float64):
             route = k3_plan(D, 1, dtype)
-            assert (route in K3_REG_TILES) == (D <= 64), (D, route)
+            assert route in (K3_REG_TILES if D <= 64 else K3_WIDE_TILES), \
+                (D, route)
 
 
 def test_k3_wrapper_routes_on_cpu():
@@ -385,13 +411,21 @@ def test_k3_wrapper_routes_on_cpu():
     At, bt = torch.tensor(A), torch.tensor(b)
     before = dict(batched_kkt_solve.launches_by_route)
     ref = batched_kkt_solve_plain(At, bt)
-    for route in ("reg4x2", "reg8x5", "shared"):
+    for route in ("reg4x2", "reg8x5", "wide5x5", "wide7x7", "shared"):
         torch.testing.assert_close(_solve_route(At, bt, route),
                                    ref, rtol=0, atol=0)
+    A, b = _spd_batch_bm((3,), 90, 1, seed=5)  # D = 90, R = 1: wide6x6
+    At, bt = torch.tensor(A), torch.tensor(b)
+    assert k3_plan(90, 1, torch.float64) == "wide6x6"
+    torch.testing.assert_close(batched_kkt_solve(At, bt),
+                               batched_kkt_solve_plain(At, bt),
+                               rtol=0, atol=0)
     assert batched_kkt_solve.launches_by_route == before
     with pytest.raises(ValueError):  # 16 + 17 columns exceed the 4 x 2 tile
         _solve_route(At[..., :16, :16].contiguous(),
                      torch.zeros(3, 16, 17, dtype=torch.float64), "reg4x2")
+    with pytest.raises(ValueError):  # 90 rows exceed the 5 x 5 wide tile
+        _solve_route(At, bt, "wide5x5")
     with pytest.raises(ValueError):
         _solve_route(At, bt, "reg9x9")
 
@@ -424,6 +458,30 @@ def test_k3_reg_tile_check(tiles, ok):
     else:
         with pytest.raises(RuntimeError):
             _check_reg_tiles(_TileLib(tiles))
+
+
+class _WideTileLib(_TileLib):
+    """Stands in for the kernel library's wide-tile query."""
+
+    def eqlb_lu_solve_bm_wide_tiles(self, addr, cap):
+        return self.eqlb_lu_solve_bm_reg_tiles(addr, cap)
+
+
+@pytest.mark.parametrize("tiles,ok", [
+    (list(K3_WIDE_TILES.values()), True),
+    ([(5, 5), (6, 6), (7, 7), (8, 8)], False),  # a tile the plan lacks
+    ([(5, 5), (7, 7)], False),  # a tile the plan names is not built
+    ([(6, 6), (5, 5), (7, 7)], False),  # another order
+    (list(K3_REG_TILES.values()), False),  # the register route's list
+])
+def test_k3_wide_tile_check(tiles, ok):
+    """The wide route's first launch holds the library's built tiles
+    against ``K3_WIDE_TILES`` and raises on any difference."""
+    if ok:
+        _check_wide_tiles(_WideTileLib(tiles))
+    else:
+        with pytest.raises(RuntimeError):
+            _check_wide_tiles(_WideTileLib(tiles))
 
 
 def test_k3_wrapper_rejects_bad_args():

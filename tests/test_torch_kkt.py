@@ -9,7 +9,8 @@ Each JAX reference runs once per (mesh, k) with two RHS, random boundary
 facet kinds 1/2 and flux data, and padded patch axes (``pad_to_multiple``)
 so its host tables carry pad rows for the ``from_host_tables`` case; the
 crossed k = 2 reference solves through the Pallas kernel in interpret
-mode, the others through ``jnp.linalg.solve``."""
+mode, the others through ``jnp.linalg.solve``.  The unstructured k = 3 case
+holds the systems of K3's wide route (D = 75, 90, 105) and D = 120."""
 
 from contextlib import nullcontext
 
@@ -39,6 +40,10 @@ N_RHS = 2  # the JAX references' batch; n_rhs = 1 cases use its first row
 _MESHES = {
     "crossed": lambda g: g.unit_square(3),
     "unstructured": lambda g: g.unit_square_unstructured(4),
+    # at RT3 the smallest of these meshes whose patches give every KKT
+    # size D = 75, 90, 105 (K3's wide route on the card) and 120 (past the
+    # size rule: torch.linalg.solve); the 4 x 4 one gives only 90 and 120
+    "unstructured7": lambda g: g.unit_square_unstructured(7),
 }
 # (mesh, k) -> the JAX reference's solver
 _CASES = {
@@ -46,6 +51,7 @@ _CASES = {
     ("crossed", 2): "pallas",
     ("crossed", 3): "xla",
     ("unstructured", 2): "xla",
+    ("unstructured7", 3): "xla",
 }
 
 
@@ -153,10 +159,10 @@ def _compatible_data(msh, k, rng, essential=False):
     return np.stack(d_proj), np.stack(d_rhs), fk, bv
 
 
-def _modes_agree(k, essential, seed):
-    data = _compatible_data(_MESHES["crossed"](jax_gen), k,
+def _modes_agree(k, essential, seed, mesh="crossed"):
+    data = _compatible_data(_MESHES[mesh](jax_gen), k,
                             np.random.default_rng(seed), essential)
-    eng = _port("crossed", k, mode="semiexplicit")
+    eng = _port(mesh, k, mode="semiexplicit")
     x_se = eng.equilibrate(*data)
     eng.mode = "kkt"
     x_kkt = eng.equilibrate(*data)
@@ -176,10 +182,15 @@ class _OneThread:
         torch.set_num_threads(self.n)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4])
-def test_kkt_equals_semiexplicit(k, monkeypatch):
+@pytest.mark.parametrize("mesh,k", [
+    *(pytest.param("crossed", k, id=str(k)) for k in (1, 2, 3, 4)),
+    pytest.param("unstructured7", 3, id="unstructured7-3"),
+])
+def test_kkt_equals_semiexplicit(mesh, k, monkeypatch):
     """At k = 4 the 8-cell patch systems (D = 208) exceed the K3 size rule
-    (D <= 110) and go to torch.linalg.solve; the smaller ones stay on K3."""
+    (D <= 110) and go to torch.linalg.solve; the smaller ones stay on K3.
+    On the unstructured mesh at k = 3 K3 takes D = 75 / 90 / 105 (its wide
+    route on the card) and D = 120 goes to torch.linalg.solve."""
     sizes, k3 = [], port_engine.batched_kkt_solve
 
     def counted_k3(A, b):
@@ -188,8 +199,10 @@ def test_kkt_equals_semiexplicit(k, monkeypatch):
 
     monkeypatch.setattr(port_engine, "batched_kkt_solve", counted_k3)
     with _OneThread() if k == 4 else nullcontext():
-        assert _modes_agree(k, False, seed=k) < 5e-12
+        assert _modes_agree(k, False, seed=k, mesh=mesh) < 5e-12
     assert sizes and max(sizes) <= 110
+    if mesh == "unstructured7":
+        assert {75, 90, 105} <= set(sizes)
     if k == 4:
         eng = _port("crossed", 4)
         kk1, ndg = eng.V.element.ndofs_cell, 10
