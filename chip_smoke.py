@@ -56,9 +56,10 @@ Phases, one line each:
       (plain versions);
    8. K3 (batch-major pivot-free solve) against its plain version, by the
       route ``k3_plan`` picks (the register route at D <= 64, the wide
-      route at 64 < D <= 110) and by the shared-memory route on the same
+      route at 64 < D <= 128) and by the shared-memory route on the same
       batch, timed in turns, at the KKT path's shapes and at D = 75, 90,
-      105 (the wide route's, phase 24) at X = 131072; then every route
+      105, 120 (the wide route's, phase 24) at X = 131072 and D = 120 at
+      phase 24's X = 24662; then every route
       once at a small batch, on each side of each split;
    9. the KKT path, f64 and f32, against the f64 plain route, with K3's
       launches split by route, and K2 against its plain version on one
@@ -177,12 +178,14 @@ Phases, one line each:
       m = ceil(sqrt(2) n) (708 at n = 500: ~1,002,528 cells, the
       headline's size; what Gmsh users bring), one
       field, every boundary facet kind 1: host set-up seconds, patches by
-      system size (D = 75, 90 and 105 for most, on K3's wide route),
-      strict and pipelined ms, the assembly / solve split, peak memory,
-      K3's launches by route (none on the shared route), the result
-      against the f64 plain route, and K3 and K2 against their plain
-      versions on every solve and the combine of one more call's own
-      operands.
+      system size (D = 75, 90, 105 and 120 for most, on K3's wide route,
+      by the port's size rule ``k3_admits``), strict and pipelined ms, the
+      assembly / solve split (``torch.linalg.solve``'s by D, and the
+      systems it took), peak memory, K3's launches by route (none on the
+      shared route), the result against the f64 plain route, and K3 and
+      K2 against their plain versions on every solve and the combine of
+      one more call's own operands, K3 past the reference's size rule
+      (D > 110) against ``torch.linalg.solve`` too.
 
 Kernel times are CUDA-event means of single launches, each after a write
 of 256 MB that leaves the 50 MB L2 cold.  ``--k1-sweep`` only builds the
@@ -917,27 +920,33 @@ def phase_f64_parity(device, n: int = 64):
 
 
 def kkt_shapes(engine):
-    """(D, R, X) of every K3 call the KKT path makes with one RHS."""
-    from dolfinx_eqlb_tpu_torch.eqlb.engine import k3_takes
+    """(D, R, X) of every K3 call the KKT path makes with one RHS (the
+    port's size rule, ``k3_admits``)."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import k3_admits
 
     shapes = []
     for key in sorted(engine.buckets):
         D, _ = engine.kkt_size(key)
         shape = (D, 1, engine.tables[key]["gdofs"].shape[0])
-        if k3_takes(D) and shape not in shapes:
+        if k3_admits(D, 1) and shape not in shapes:
             shapes.append(shape)
     return shapes
 
 
 # K3 at the wide route's KKT sizes (RT3 on an unstructured mesh: D = 75,
-# 90 and 105, phase 24) at the main path's chunk
-K3_WIDE_SHAPES = [(75, 1, CHUNK), (90, 1, CHUNK), (105, 1, CHUNK)]
+# 90, 105 and 120, phase 24) at the main path's chunk, and at D = 120 at
+# the size of phase 24's D = 120 bucket (24,662 interior 8-cell patches at
+# n = 500)
+K3_WIDE_SHAPES = [(75, 1, CHUNK), (90, 1, CHUNK), (105, 1, CHUNK),
+                  (120, 1, CHUNK), (120, 1, 24662)]
 # (D, R) of phase 8's untimed checks at a small batch: the register tiles
 # 7 x 4 and 8 x 5 at their edges (32, 33, 64), every wide tile at its
-# edges (65 ... 110, R = 2 at the 7 x 7 tile's last column) and the
-# shared-memory route past them (120)
+# edges (65 ... 127, R = 2 at the 7 x 7 and 8 x 8 tiles' last columns;
+# 112 the first 8 x 8 shape at R = 1) and the shared-memory route past
+# them (128)
 K3_EDGE_CHECKS = [(32, 1), (33, 1), (64, 1), (65, 1), (79, 1), (80, 1),
-                  (95, 1), (96, 1), (110, 1), (110, 2), (120, 1)]
+                  (95, 1), (96, 1), (110, 1), (110, 2), (112, 1), (120, 1),
+                  (127, 1), (126, 2), (128, 1)]
 
 
 def phase_k3(shapes, device, timer, edges=K3_EDGE_CHECKS):
@@ -1011,34 +1020,44 @@ def phase_k3(shapes, device, timer, edges=K3_EDGE_CHECKS):
     return rows, tiles
 
 
-def kkt_stages(eng, args, device) -> dict:
+def kkt_stages(eng, args, device) -> tuple[dict, dict]:
     """Where a KKT call's time goes: the assembly and the solves of every
-    bucket, the solves split into K3's (``k3_takes``) and the pivoted
-    ``torch.linalg.solve`` of the larger systems; host clock around
-    synchronised stages, best of 2 calls."""
-    from dolfinx_eqlb_tpu_torch.eqlb.engine import k3_takes
-
+    bucket, the solves split into K3's and the pivoted
+    ``torch.linalg.solve``'s (in all and by D), each solve classed by
+    whether K3's launch count moved; host clock around synchronised
+    stages, best of 2 calls.  Returns the stages and the systems
+    ``torch.linalg.solve`` took, by D."""
+    k3 = kernel_wrappers()["K3"]
     dp, dr, fk, bv = args
     kdev, krefd = eng._kkt_tables()
-    best = {}
+    best, pivoted = {}, {}
     for _ in range(2):
         stages = {"assembly_ms": 0.0, "solve_k3_ms": 0.0,
                   "solve_linalg_ms": 0.0}
+        pivoted = {}
         for key in sorted(eng.buckets):
             t0 = time.perf_counter()
             Ar, br, _ = eng._assemble_bucket(key, dp, dr, fk, bv, kdev[key],
                                              krefd)
             sync(device)
             t1 = time.perf_counter()
-            eng._dense_solve(Ar, br[..., None])
+            before = k3.launches
+            eng._kkt_solve(Ar, br[..., None])
             sync(device)
+            ms = (time.perf_counter() - t1) * 1e3
             stages["assembly_ms"] += (t1 - t0) * 1e3
-            stages["solve_k3_ms" if k3_takes(Ar.shape[-1])
-                   else "solve_linalg_ms"] += (time.perf_counter() - t1) * 1e3
+            if k3.launches > before:
+                stages["solve_k3_ms"] += ms
+            else:
+                D = Ar.shape[-1]
+                stages["solve_linalg_ms"] += ms
+                name = f"solve_linalg_D{D}_ms"
+                stages[name] = stages.get(name, 0.0) + ms
+                pivoted[D] = pivoted.get(D, 0) + Ar.numel() // (D * D)
             del Ar, br
         best = {name: min(val, best.get(name, val))
                 for name, val in stages.items()}
-    return best
+    return best, dict(sorted(pivoted.items()))
 
 
 def phase_kkt(eng64, msh, device, operand_checks=False):
@@ -1082,13 +1101,14 @@ def phase_kkt(eng64, msh, device, operand_checks=False):
         res["k3_launches_by_route"] = dict(
             kernel_wrappers()["K3"].launches_by_route)
         res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
-        res["stages_ms"] = kkt_stages(eng, args, device)
+        res["stages_ms"], res["pivoted_systems_by_D"] = kkt_stages(
+            eng, args, device)
         flats, combine = [], eng._combine_flat
         eng._combine_flat = lambda flat: flats.append(flat) or combine(flat)
         try:
             if operand_checks:
                 res["k3_checks"] = capture_dense_solves(
-                    eng, lambda: eng.equilibrate(*args), check=True)[1]
+                    lambda: eng.equilibrate(*args), check=True)[1]
             else:
                 eng.equilibrate(*args)
         finally:
@@ -1129,9 +1149,10 @@ def phase_kkt_unstructured(device, n: int) -> dict:
     """Phase 24: the KKT cross-check path at RT3 on
     ``unit_square_unstructured(n)`` (what Gmsh users bring), one field,
     ``make_data``'s random data with every boundary facet kind 1: most of
-    its patch systems have D = 75, 90 or 105 and take K3's wide route.
-    ``phase_kkt`` on an f64 engine of the mesh (chunk ``CHUNK``), with K3
-    held against its plain version on every solve of one more call's own
+    its patch systems have D = 75, 90, 105 or 120 and take K3's wide
+    route.  ``phase_kkt`` on an f64 engine of the mesh (chunk ``CHUNK``),
+    with K3 held against its plain version (and past D = 110 against
+    ``torch.linalg.solve``) on every solve of one more call's own
     operands; the host set-up seconds beside it."""
     from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
     from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
@@ -1169,6 +1190,7 @@ def report_kkt(kkt: dict, label: str, shapes, nph: int, failures: list,
     the path plans, K2 off its plain version on the call's combine input,
     and K3 off its plain version on the call's operands where they were
     checked."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import k3_admits
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import k3_plan
 
     for dt, r in kkt.items():
@@ -1179,12 +1201,15 @@ def report_kkt(kkt: dict, label: str, shapes, nph: int, failures: list,
         on_operands += "" if checks is None else (
             "; K3 vs plain on its operands: " + "; ".join(
                 f"D={c['D']} X={c['X']} {c['route']} max_rel_err "
-                f"{c['max_rel_err']:.3e} (limit {c['limit']:g})"
-                for c in checks))
+                f"{c['max_rel_err']:.3e}" + (
+                    f", vs torch.linalg.solve {c['linalg_max_rel_err']:.3e}"
+                    if "linalg_max_rel_err" in c else "")
+                + f" (limit {c['limit']:g})" for c in checks))
         log(f"[{nph_this}/{nph}] KKT path {label} {dt} 1 field: "
             f"first call {r['first_call_s']:.3f} s; strict "
             f"{r['strict_ms_median']:.3f} ms median, pipelined "
-            f"{r['pipelined_ms_min']:.3f} ms ({r['stages_ms']}); peak "
+            f"{r['pipelined_ms_min']:.3f} ms ({r['stages_ms']}; systems "
+            f"torch.linalg.solve took, by D: {r['pivoted_systems_by_D']}); peak "
             f"{r['peak_mem_gib']:.2f} GiB; launches {r['launches']}, K3 by "
             f"route {r['k3_launches_by_route']}; max|x - plain f64| "
             f"{r['max_abs_err_vs_plain_f64']:.3e} (limit "
@@ -1211,7 +1236,12 @@ def report_kkt(kkt: dict, label: str, shapes, nph: int, failures: list,
         if checks is not None and not (checks
                                        and all(c["ok"] for c in checks)):
             failures.append(f"KKT path {label} {dt}: K3 disagrees with its "
-                            f"plain version on the call's operands")
+                            f"plain version or torch.linalg.solve on the "
+                            f"call's operands")
+        admitted = [D for D in r["pivoted_systems_by_D"] if k3_admits(D, 1)]
+        if admitted:
+            failures.append(f"KKT path {label} {dt}: torch.linalg.solve took "
+                            f"systems K3's rule admits, D = {admitted}")
 
 
 def report_kkt_unstructured(r: dict, nph: int, failures: list) -> None:
@@ -2312,7 +2342,11 @@ def report_elasticity(r: dict, nph: int, failures: list) -> None:
 def k3_operand_checks(solves) -> list:
     """K3 against its plain version on captured batch-major operands, one
     row per operand set: within 1e-12 (f64) or 1e-4 (f32) of the plain
-    solve relative to its largest entry."""
+    solve relative to its largest entry.  Past the reference's size rule
+    (``k3_takes``: D > 110), where the reference pivots, K3 is also held
+    to the pivoted ``torch.linalg.solve`` at the same bar, since the plain
+    version shares K3's pivot-free order."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import k3_takes
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
         batched_kkt_solve, batched_kkt_solve_plain, k3_plan,
     )
@@ -2325,38 +2359,46 @@ def k3_operand_checks(solves) -> list:
         rel = err / float(xp.abs().max())
         D, R = A.shape[-1], b.shape[-1]
         tol = 1e-12 if A.dtype == torch.float64 else 1e-4
-        rows.append(dict(dtype=dname(A.dtype), D=D, R=R,
-                         X=int(np.prod(A.shape[:-2])),
-                         route=k3_plan(D, R, A.dtype), max_abs_err=err,
-                         max_rel_err=rel, limit=tol,
-                         ok=bool(torch.isfinite(x).all()) and rel <= tol))
-        del x, xp
+        row = dict(dtype=dname(A.dtype), D=D, R=R,
+                   X=int(np.prod(A.shape[:-2])),
+                   route=k3_plan(D, R, A.dtype), max_abs_err=err,
+                   max_rel_err=rel, limit=tol,
+                   ok=bool(torch.isfinite(x).all()) and rel <= tol)
+        del xp
+        if not k3_takes(D):
+            xl = torch.linalg.solve(A, b)
+            row["linalg_max_rel_err"] = (float((x - xl).abs().max())
+                                         / float(xl.abs().max()))
+            row["ok"] = row["ok"] and row["linalg_max_rel_err"] <= tol
+            del xl
+        rows.append(row)
+        del x
     return rows
 
 
-def capture_dense_solves(eng, call, check=False):
-    """Run ``call()`` with the engine's batch-major K3 solves recorded:
-    returns (call's result, [(A, b), ...] of the systems K3 took); with
-    ``check``, each is held against its plain version as it comes
-    (``k3_operand_checks``) and the check rows are returned instead, so
-    that no operand outlives its solve (one call's operands at 1M cells
-    and RT3 would hold ~30 GB in f64)."""
-    from dolfinx_eqlb_tpu_torch.eqlb.engine import k3_takes
+def capture_dense_solves(call, check=False):
+    """Run ``call()`` with the engine's batch-major K3 solves recorded
+    (the engine module's ``batched_kkt_solve``, which the flux KKT stage
+    and ``_dense_solve`` call under their size rules): returns (call's
+    result, [(A, b), ...] of the systems K3 took); with ``check``, each is
+    held against its plain version as it comes (``k3_operand_checks``) and
+    the check rows are returned instead, so that no operand outlives its
+    solve (one call's operands at 1M cells and RT3 would hold ~30 GB in
+    f64)."""
+    from dolfinx_eqlb_tpu_torch.eqlb import engine
 
     solves = []
-    solve = eng._dense_solve
+    solve = engine.batched_kkt_solve
 
     def record(A, b):
-        if eng.solver == "kernel" and k3_takes(A.shape[-1]):
-            solves.extend(k3_operand_checks([(A, b)]) if check
-                          else [(A, b)])
+        solves.extend(k3_operand_checks([(A, b)]) if check else [(A, b)])
         return solve(A, b)
 
-    eng._dense_solve = record
+    engine.batched_kkt_solve = record
     try:
         out = call()
     finally:
-        del eng._dense_solve
+        engine.batched_kkt_solve = solve
     return out, solves
 
 
@@ -2406,7 +2448,7 @@ def phase_stress_kkt(device, n: int = 64) -> dict:
         for a, b in zip(kkt.list_flux, se.list_flux))
     res["limit"] = 1e-9 * max(1.0, max(float(b.x.abs().max())
                                         for b in se.list_flux))
-    _, solves = capture_dense_solves(kkt.engine, kkt.equilibrate_fluxes)
+    _, solves = capture_dense_solves(kkt.equilibrate_fluxes)
     res["k3_checks"] = k3_operand_checks(solves)
     del info_se, info_kkt, se, kkt, solves
     torch.cuda.empty_cache()
@@ -2431,7 +2473,7 @@ def phase_stress_kkt(device, n: int = 64) -> dict:
                                        refd).movedim(-1, 1)
         reset_launches()
         got, red_solves = capture_dense_solves(
-            eng, lambda: weak_symmetry_bucket_reduced(
+            lambda: weak_symmetry_bucket_reduced(
                 eng, key, sol_bl.movedim(-1, 1), fk[:2], eq._d_proj[:2]))
         launches = read_launches()
         finite = torch.isfinite(got).all(dim=-1).all(dim=0)  # (P,)
@@ -4176,8 +4218,8 @@ def main(argv=None) -> int:
     entries[1]["kkt_operands"] = {
         name: {key: c[key] for key in ("dtype", "ndofs", "L", "bitwise")}
         for name, c in kkt_k2_checks.items()}
-    # K3's numbers are those of its largest f64 shape, D = 105 on the wide
-    # route; the shared route beside them, and every timed shape
+    # K3's numbers are those of its largest f64 shape, D = 120 at X = 131072
+    # on the wide route; the shared route beside them, and every timed shape
     k3_row = biggest(k3, "float64")
     entries[2].update(
         k3_route=k3_row["route"], shared_ms=k3_row["shared_ms"],
@@ -4195,7 +4237,8 @@ def main(argv=None) -> int:
             "D", "R", "X", "route", "max_rel_err")}
             for c in k3_stress_checks],
         rt3_unstructured_operands=[{key: c[key] for key in (
-            "dtype", "D", "R", "X", "route", "max_rel_err")}
+            "dtype", "D", "R", "X", "route", "max_rel_err",
+            "linalg_max_rel_err") if key in c}
             for c in k3_rt3_checks],
         shapes=[{key: r[key] for key in (
             "dtype", "D", "R", "X", "route", "ms", "shared_ms", "plain_ms",

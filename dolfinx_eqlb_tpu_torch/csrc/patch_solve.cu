@@ -418,7 +418,7 @@ int launch_bl_block(const void* A, const void* b, void* x, int64_t D,
 // Replaces the Pallas TPU kernel's batch-major entry
 // dolfinx_eqlb_tpu/ops/patch_solve.py::batched_kkt_solve (the moveaxis into
 // _kernel), the solve of the KKT mode's full patch systems: A (N, D, D) and
-// b (N, D, R), row-major per system, D = 16-56 at RT2 and up to 110.
+// b (N, D, R), row-major per system, D = 16-56 at RT2 and up to 128.
 //
 // What bounds it on the card: at D = 56 a system is ~3,100 values and
 // ~D^3/3 = 58,000 multiply-adds, so one thread per system (K1's design)
@@ -562,7 +562,7 @@ int launch_bm(const void* A, const void* b, void* x, int64_t N, int64_t D,
 // are later work.
 //
 // K3, wide route: the same kernel on a 16 x 16 thread layout (256 threads)
-// for 64 < D <= 112, the KKT systems of RT3 on unstructured meshes
+// for 64 < D <= 128, the KKT systems of RT3 on unstructured meshes
 // (D = 75, 90, 105) and of RT4 (D = 104, 108), which the 8 x 16 layout
 // would cover only with 14 x 7 = 98 values a thread (~196 registers in
 // f64, spilled).  Twice the thread rows halve MR: tiles 5 x 5, 6 x 6 and
@@ -579,15 +579,28 @@ int launch_bm(const void* A, const void* b, void* x, int64_t N, int64_t D,
 // spill in f64 and lose in f32 and at D = 75; a blocked LU on the FP64
 // tensor cores with its trailing matrix in shared memory, slower at every
 // D (bound by the shared-memory traffic of the trailing updates).
+//
+// The wide route's last tile, 8 x 8, covers D + R <= 128: the KKT systems
+// of RT3 on unstructured meshes at D = 120 (interior patches of 8 cells),
+// which the TPU's VMEM rule left to a pivoted library solve.  64 values a
+// thread leave one f64 block an SM by registers (255 of them), so its
+// U | y store (123 KB at D = 120 in f64) costs nothing more; f32 runs
+// three blocks an SM under an 80-register cap (140 bytes spilled), faster
+// than two without spills.  Tried beside it at D = 120 on the H100 and
+// not kept (PERF.md): a store packed by rows (each row's slot starting at
+// its first live column block, 72 KB in f64), slower at the same
+// occupancy in both dtypes, and slower than the kept tile where it lets a
+// second f64 block in at 128 registers (with spills); 16 x 32 threads
+// with 8 x 4 tiles, slower in both dtypes.
 
 // per layout and tile: the blocks per SM the register budget is cut for,
 // and the unroll of the step loop (H100 measurements, PERF.md); no tile
-// spills
+// spills but the wide route's f32 8 x 8 (above)
 template <typename T, int TR, int MR, int MC>
 constexpr int reg_min_blocks() {
   constexpr int vals = MR * MC;
   if (TR == 16) {  // wide route, 256 threads a block
-    if (sizeof(T) == 8) return vals <= 25 ? 3 : 2;
+    if (sizeof(T) == 8) return vals <= 25 ? 3 : vals <= 49 ? 2 : 1;
     return vals <= 36 ? 4 : 3;
   }
   if (sizeof(T) == 8) return vals <= 8 ? 12 : vals <= 28 ? 6 : 4;
@@ -598,7 +611,7 @@ constexpr int reg_min_blocks() {
 template <typename T, int TR, int MR, int MC>
 constexpr int reg_unroll() {
   constexpr int vals = MR * MC;
-  if (TR == 16) return sizeof(T) == 8 ? 1 : 2;
+  if (TR == 16) return sizeof(T) == 8 && vals <= 49 ? 1 : 2;
   return vals <= 8 ? 8 : (sizeof(T) == 8 && vals <= 28) ? 1 : 2;
 }
 
@@ -722,7 +735,7 @@ int launch_bm_reg_tile(const void* A, const void* b, void* x, int64_t N,
       D + R > TC * MC)
     return static_cast<int>(cudaErrorInvalidValue);
   // column buffers and [U | y] at row stride TC MC + 1: <= 42 KB for every
-  // register tile, up to 101 KB for the wide route's 7 x 7 in f64
+  // register tile, up to 133 KB for the wide route's 8 x 8 in f64
   const int64_t smem = (2 * TR * MR + D * (TC * MC + 1)) *
                        static_cast<int64_t>(sizeof(T));
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -745,7 +758,7 @@ int launch_bm_reg_tile(const void* A, const void* b, void* x, int64_t N,
 // wrapper holds each against eqlb_lu_solve_bm_reg_tiles /
 // eqlb_lu_solve_bm_wide_tiles before the route's first launch.
 #define EQLB_K3_REG_TILES(X) X(4, 2) X(7, 4) X(8, 5)
-#define EQLB_K3_WIDE_TILES(X) X(5, 5) X(6, 6) X(7, 7)
+#define EQLB_K3_WIDE_TILES(X) X(5, 5) X(6, 6) X(7, 7) X(8, 8)
 
 template <typename T>
 int launch_bm_reg(const void* A, const void* b, void* x, int64_t N, int64_t D,

@@ -23,8 +23,9 @@ problem).  ``EqlbEngine.equilibrate`` runs one of two modes:
 
 * ``mode="kkt"``, the reference's full saddle-point formulation, kept to
   cross-check the fast path: per bucket, ``_assemble_bucket`` builds one
-  dense KKT system per patch from batch-major tables, ``_dense_solve``
-  solves them through K3 (``ops.patch_solve.batched_kkt_solve``), the
+  dense KKT system per patch from batch-major tables, ``_kkt_solve``
+  solves them through K3 (``ops.patch_solve.batched_kkt_solve``) wherever
+  a tiled route of K3 covers the system (``k3_admits``), the
   weak-symmetry correction, if asked for, is the full stress KKT system
   (``stress._weak_symmetry_bucket_kkt``, pivoted), and the flux part of
   the solutions goes through the same combine as above.
@@ -60,7 +61,9 @@ from ..elements.quadrature import gauss_interval, gauss_triangle
 from ..elements.rt import rt_cached
 from ..fem.spaces import FunctionSpace, resolve_device
 from ..ops.lane_select import combine_gather, ds_combine_gather
-from ..ops.patch_solve import batched_kkt_solve, batched_kkt_solve_bl
+from ..ops.patch_solve import (
+    batched_kkt_solve, batched_kkt_solve_bl, k3_admits,
+)
 from .patches import PatchBucket, bucket_dof_tables
 from .semiexplicit import (
     boundary_ess_bl, combo_tensors, mass_matrices_bl, reduced_basis,
@@ -71,7 +74,7 @@ from .stress import (
     weak_symmetry_bucket_bl,
 )
 
-__all__ = ["EqlbEngine", "k3_takes", "reference_tensors"]
+__all__ = ["EqlbEngine", "k3_admits", "k3_takes", "reference_tensors"]
 
 
 _HAT_GRADS = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
@@ -151,9 +154,11 @@ def _chunk_buckets(buckets, C: int):
 
 def k3_takes(D: int) -> bool:
     """The reference's size rule for its batch-major Pallas solve (two
-    (D, D, 128) f32 tiles in a 12 MiB budget: D <= 110).  The port routes
-    the same systems to K3, so both packages solve each system the same
-    way; K3 itself takes more (``ops.patch_solve.SMEM_LIMIT``)."""
+    (D, D, 128) f32 tiles in a 12 MiB budget of the TPU's VMEM: D <= 110).
+    ``_dense_solve`` keeps it, for the reduced weak-symmetry systems
+    (``stress.weak_symmetry_bucket_reduced``), which are not safe without
+    pivoting; the flux KKT stage follows the port's own rule,
+    ``ops.patch_solve.k3_admits`` (exported here beside it)."""
     return D * D * 128 * 4 * 2 < 12 * 2**20
 
 
@@ -656,7 +661,7 @@ class EqlbEngine:
         for key in sorted(self.buckets.keys()):
             Ar, br, nflux = self._assemble_bucket(
                 key, d_proj, d_rhs, facet_kind, bvals, kdev[key], krefd)
-            sol = self._dense_solve(Ar, br[..., None])[..., :nflux, 0]
+            sol = self._kkt_solve(Ar, br[..., None])[..., :nflux, 0]
             if weak_symmetry:
                 sol[:2] += _weak_symmetry_bucket_kkt(
                     self, key, sol[:2], facet_kind[:2], d_proj[:2],
@@ -706,11 +711,20 @@ class EqlbEngine:
         return x.permute(1, 2, 0)
 
     def _dense_solve(self, A, b):
-        """Batch-major solve of the KKT systems: A (..., P, D, D),
+        """Batch-major solve by the reference's size rule: A (..., P, D, D),
         b (..., P, D, R).  ``solver="kernel"`` takes K3 for the sizes
         ``k3_takes`` admits; the rest go to ``torch.linalg.solve``, as in
         the reference."""
         if self.solver == "kernel" and k3_takes(A.shape[-1]):
+            return batched_kkt_solve(A, b)
+        return torch.linalg.solve(A, b)
+
+    def _kkt_solve(self, A, b):
+        """Batch-major solve of the flux KKT systems by the port's size
+        rule: ``solver="kernel"`` takes K3 for the shapes ``k3_admits``
+        admits (D = 120 at RT3 too, past the reference's rule); the rest go
+        to the pivoted ``torch.linalg.solve``, as in the reference."""
+        if self.solver == "kernel" and k3_admits(A.shape[-1], b.shape[-1]):
             return batched_kkt_solve(A, b)
         return torch.linalg.solve(A, b)
 

@@ -19,13 +19,14 @@ and how its design answers.
   (``k1_block_fits``); the global route (one thread per system,
   elimination in place in a global scratch, any D) takes what is left.
 * K3, ``batched_kkt_solve`` (entry ``batched_kkt_solve``): batch-major
-  A (..., P, D, D), the KKT mode's full patch systems, D up to 110; one
+  A (..., P, D, D), the KKT mode's full patch systems, D up to 128; one
   thread block per system, by one of three routes that ``k3_plan`` picks
   from the shape: for D <= 64 the register route (each thread of 8 x 16
   holds a tile of [A | b] in registers, one barrier per elimination step),
-  for 64 < D <= 110 the wide route (the same kernel on 16 x 16 threads),
+  for 64 < D <= 128 the wide route (the same kernel on 16 x 16 threads),
   and for what neither covers the shared-memory route ([A | b] staged in
-  shared memory).
+  shared memory).  ``k3_admits``, the shapes a tiled route covers, is the
+  port's size rule for the flux KKT systems.
 
 Pivot-free LU is the contract, and it is sound for the callers' systems:
 the semi-explicit engine's reduced matrices are SPD, with identity rows on
@@ -52,6 +53,7 @@ __all__ = ["batched_kkt_solve_bl", "batched_kkt_solve_bl_plain", "k1_plan",
            "K1_ROUTES", "K1_TILES", "K1_TILE_MAX_D", "K1_TILE_MAX_D_R1",
            "K1_TILE_MIN_X", "K1_TILE_SMALL_D",
            "batched_kkt_solve", "batched_kkt_solve_plain", "k3_plan",
+           "k3_admits",
            "K3_REG_TILES", "K3_WIDE_TILES", "K3_ROUTES"]
 
 _FUNCS = {torch.float32: "eqlb_lu_solve_bl_f32",
@@ -112,11 +114,13 @@ K1_TILE_SMALL_D = 6
 K3_REG_TILES = {"reg4x2": (4, 2), "reg7x4": (7, 4), "reg8x5": (8, 5)}
 # K3's wide route: the same kernel on 16 x 16 threads, tiles (MR, MC)
 # covering D <= 16 MR rows and W <= 16 MC columns, for the systems past
-# the register tiles: at R <= 2 every D of 65-110 (the KKT systems of RT3
-# on unstructured meshes, D = 75 / 90 / 105, take 5 x 5, 6 x 6 and 7 x 7).
-# The same list is EQLB_K3_WIDE_TILES in csrc/patch_solve.cu, checked at
-# the first launch like the register tiles.
-K3_WIDE_TILES = {"wide5x5": (5, 5), "wide6x6": (6, 6), "wide7x7": (7, 7)}
+# the register tiles: at R <= 2 every D of 65-126 (the KKT systems of RT3
+# on unstructured meshes, D = 75 / 90 / 105 / 120, take 5 x 5, 6 x 6,
+# 7 x 7 and 8 x 8).  The same list is EQLB_K3_WIDE_TILES in
+# csrc/patch_solve.cu, checked at the first launch like the register
+# tiles.
+K3_WIDE_TILES = {"wide5x5": (5, 5), "wide6x6": (6, 6), "wide7x7": (7, 7),
+                 "wide8x8": (8, 8)}
 K3_ROUTES = (*K3_REG_TILES, *K3_WIDE_TILES, "shared")
 # every tiled route, smallest first, and the thread rows of its layout (16
 # thread columns in both)
@@ -128,6 +132,14 @@ _TILE_ROWS = {**dict.fromkeys(K3_REG_TILES, 8),
 def _tile_covers(route: str, D: int, R: int) -> bool:
     mr, mc = _K3_TILES[route]
     return D <= _TILE_ROWS[route] * mr and D + R <= 16 * mc
+
+
+def k3_admits(D: int, R: int) -> bool:
+    """The port's size rule for K3, which the engine's flux KKT stage
+    follows: whether a tiled route (register or wide) covers D x D systems
+    with R right-hand sides, that is D + R <= 128.  It owes nothing to the
+    TPU's VMEM, unlike the reference's rule (``eqlb.engine.k3_takes``)."""
+    return any(_tile_covers(route, D, R) for route in _K3_TILES)
 
 
 def _shared_fits(D: int, R: int, dtype: torch.dtype) -> bool:

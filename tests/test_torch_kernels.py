@@ -25,7 +25,8 @@ from dolfinx_eqlb_tpu_torch.ops.lane_select import (
     combine_gather, combine_gather_plain, ds_combine_gather,
     ds_combine_gather_plain,
 )
-from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine, k3_takes
+import dolfinx_eqlb_tpu_torch.eqlb.engine as port_engine
+from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine, k3_admits, k3_takes
 from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
 from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
 from dolfinx_eqlb_tpu_torch.mesh import unit_square, unit_square_unstructured
@@ -315,13 +316,14 @@ def _spd_batch_bm(lead, D, R, seed):
 
 
 @pytest.mark.parametrize("D", [16, 28, 32, 33, 56, 64, 65, 75, 90, 104, 105,
-                               108, 110])
+                               108, 110, 120, 127])
 def test_k3_plain_matches_pallas_and_linalg(D):
     """Leading axes (2, P) are folded, as the KKT mode's (n_rhs, P).  D = 32,
     33, 64 and 65 sit on the boundaries of K3's register tiles and of its
-    register route; 75, 90 and 105 are the KKT sizes of RT3 on unstructured
-    meshes, 104 and 108 those of RT4, and 110 the last D of the size rule,
-    all on the wide route."""
+    register route; 75, 90, 105 and 120 are the KKT sizes of RT3 on
+    unstructured meshes, 104 and 108 those of RT4, 110 the last D of the
+    reference's size rule and 127 the last of the port's at R = 1, all on
+    the wide route."""
     A, b = _spd_batch_bm((2, 9), D, 1, seed=D)
     x_jax = np.asarray(jax_k3(jnp.asarray(A, jnp.float64),
                               jnp.asarray(b, jnp.float64)))
@@ -347,19 +349,21 @@ def test_k3_wrapper_on_cpu_is_the_plain_version():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("R", [1, 2])
 def test_k3_plan_covers_every_size(R, dtype):
-    """Every D of the KKT size rule (D <= 110) has a tiled route: for
+    """Every D of the port's size rule (``k3_admits``: D + R <= 128, so
+    every D of the reference's rule, D <= 110) has a tiled route: for
     D <= 64 a register tile of at most 40 values a thread covering all D
     rows and D + R columns of the 8 x 16 thread layout, the smallest that
-    does; for D = 65 ... 110 a wide tile of at most 49 values a thread
+    does; for D = 65 ... 128 - R a wide tile of at most 64 values a thread
     covering them on 16 x 16 threads, the smallest that does.  The
     shared-memory route takes none of them."""
-    for D in range(1, 111):
+    assert all(k3_admits(D, R) for D in range(1, 129 - R))
+    for D in range(1, 129 - R):
         route = k3_plan(D, R, dtype)
         layout, rows = ((K3_REG_TILES, 8) if D <= 64
                         else (K3_WIDE_TILES, 16))
         assert route in layout, (D, route)
         tiles = list(layout.values())
-        assert all(mr * mc <= (40 if rows == 8 else 49) for mr, mc in tiles)
+        assert all(mr * mc <= (40 if rows == 8 else 64) for mr, mc in tiles)
         mr, mc = layout[route]
         assert D <= rows * mr and D + R <= 16 * mc, (D, route)
         smaller = tiles[:tiles.index((mr, mc))]
@@ -369,7 +373,7 @@ def test_k3_plan_covers_every_size(R, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k3_plan_shared_only_past_wide(dtype):
     """The shared-memory route takes a shape only where no wide tile covers
-    it (D > 112 or D + R > 112) and [A | b] fits a block; past that k3_plan
+    it (D > 128 or D + R > 128) and [A | b] fits a block; past that k3_plan
     raises."""
     biggest = max(K3_WIDE_TILES.values())
     for D in range(100, 170):
@@ -388,14 +392,15 @@ def test_k3_plan_shared_only_past_wide(dtype):
 @pytest.mark.parametrize("k", [1, 2, 3])
 @pytest.mark.parametrize("mesh", ["crossed", "unstructured"])
 def test_k3_plan_takes_kkt_shapes_on_registers(mesh, k):
-    """The KKT systems of the KKT tests' meshes that K3 takes
-    (``k3_takes``) go to a register tile whenever D <= 64 and to a wide
-    tile above; none to the shared-memory route."""
+    """The KKT systems of the KKT tests' meshes that K3 takes (the port's
+    rule, ``k3_admits``: D = 120 at RT3 on the unstructured mesh too) go
+    to a register tile whenever D <= 64 and to a wide tile above; none to
+    the shared-memory route."""
     msh = unit_square(3) if mesh == "crossed" else unit_square_unstructured(4)
     eng = EqlbEngine(FunctionSpace(msh, "RT", k), build_patches(msh),
                      dtype=torch.float64, device="cpu")
     sizes = {eng.kkt_size(key)[0] for key in eng.buckets}
-    taken = [D for D in sorted(sizes) if k3_takes(D)]
+    taken = [D for D in sorted(sizes) if k3_admits(D, 1)]
     assert taken
     for D in taken:
         for dtype in (torch.float32, torch.float64):
@@ -428,6 +433,63 @@ def test_k3_wrapper_routes_on_cpu():
         _solve_route(At, bt, "wide5x5")
     with pytest.raises(ValueError):
         _solve_route(At, bt, "reg9x9")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_plan_wide8x8_edges(dtype):
+    """The 8 x 8 wide tile takes the shapes past 7 x 7 up to D + R = 128
+    (D = 120 at RT3 on unstructured meshes, the 24,662 interior 8-cell
+    patches of the 1M-cell mesh); 7 x 7 keeps its own edge, the
+    shared-memory route takes what comes after."""
+    for D, R in ((112, 1), (111, 2), (113, 1), (120, 1), (120, 2),
+                 (127, 1), (126, 2)):
+        assert k3_plan(D, R, dtype) == "wide8x8", (D, R)
+    for D, R in ((111, 1), (110, 2)):
+        assert k3_plan(D, R, dtype) == "wide7x7", (D, R)
+    for D, R in ((128, 1), (127, 2), (129, 1), (135, 1), (150, 1)):
+        assert k3_plan(D, R, dtype) == "shared", (D, R)
+
+
+def test_k3_size_rules():
+    """The port's rule (``k3_admits``, the engine's flux KKT stage) admits
+    every shape a tiled route covers: RT3's D = 120, not D = 135 / 150 or
+    RT4's D = 208; the reference's rule (``k3_takes``, kept by the reduced
+    weak-symmetry systems) stops at D = 110 as before."""
+    assert port_engine.k3_admits is k3_admits
+    assert all(k3_admits(D, 1) for D in (33, 75, 90, 105, 110, 120, 127))
+    assert k3_admits(126, 2) and not k3_admits(127, 2)
+    assert not any(k3_admits(D, 1) for D in (128, 135, 150, 208))
+    assert [D for D in range(1, 300) if k3_takes(D)] == list(range(1, 111))
+
+
+def test_weak_symmetry_reduced_keeps_reference_rule(monkeypatch):
+    """``stress.weak_symmetry_bucket_reduced`` solves through
+    ``_dense_solve`` by the reference's rule (its systems are not safe
+    without pivoting): ``k3_takes`` decides, ``k3_admits`` is never asked,
+    and K3 (its plain version here) takes each system ``k3_takes``
+    admits."""
+    from dolfinx_eqlb_tpu_torch.eqlb import stress as tstress
+
+    msh = unit_square_unstructured(4, seed=1)
+    eng = EqlbEngine(FunctionSpace(msh, "RT", 2), build_patches(msh),
+                     dtype=torch.float64, device="cpu")
+    asked, solved = [], []
+    takes, k3 = port_engine.k3_takes, port_engine.batched_kkt_solve
+    monkeypatch.setattr(port_engine, "k3_takes",
+                        lambda D: asked.append(D) or takes(D))
+    monkeypatch.setattr(port_engine, "k3_admits", lambda D, R: pytest.fail(
+        "the reduced formulation asked the port's rule"))
+    monkeypatch.setattr(port_engine, "batched_kkt_solve",
+                        lambda A, b: solved.append(A.shape[-1]) or k3(A, b))
+    rng = np.random.default_rng(7)
+    key = max(eng.buckets, key=lambda k: eng.buckets[k].npatches)
+    P, nflux = eng.tables[key]["gdofs"].shape[0], eng.kkt_size(key)[1]
+    sol = torch.tensor(rng.normal(size=(2, P, nflux)))
+    fk = torch.zeros((2, msh.num_facets), dtype=torch.int8)
+    d_proj = torch.tensor(rng.normal(size=(2, msh.num_cells, 2, 3)))
+    y = tstress.weak_symmetry_bucket_reduced(eng, key, sol, fk, d_proj)
+    assert y.shape == (2, P, nflux) and asked
+    assert solved == [D for D in asked if takes(D)]
 
 
 class _TileLib:
@@ -469,9 +531,9 @@ class _WideTileLib(_TileLib):
 
 @pytest.mark.parametrize("tiles,ok", [
     (list(K3_WIDE_TILES.values()), True),
-    ([(5, 5), (6, 6), (7, 7), (8, 8)], False),  # a tile the plan lacks
-    ([(5, 5), (7, 7)], False),  # a tile the plan names is not built
-    ([(6, 6), (5, 5), (7, 7)], False),  # another order
+    ([(5, 5), (6, 6), (7, 7), (8, 8), (9, 9)], False),  # a tile the plan lacks
+    ([(5, 5), (7, 7), (8, 8)], False),  # a tile the plan names is not built
+    ([(6, 6), (5, 5), (7, 7), (8, 8)], False),  # another order
     (list(K3_REG_TILES.values()), False),  # the register route's list
 ])
 def test_k3_wide_tile_check(tiles, ok):

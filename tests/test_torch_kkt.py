@@ -10,7 +10,9 @@ facet kinds 1/2 and flux data, and padded patch axes (``pad_to_multiple``)
 so its host tables carry pad rows for the ``from_host_tables`` case; the
 crossed k = 2 reference solves through the Pallas kernel in interpret
 mode, the others through ``jnp.linalg.solve``.  The unstructured k = 3 case
-holds the systems of K3's wide route (D = 75, 90, 105) and D = 120."""
+holds the systems of K3's wide route (D = 75, 90, 105 and 120): the port
+solves D = 120 pivot-free (its own size rule, ``k3_admits``) where JAX's
+engine pivots."""
 
 from contextlib import nullcontext
 
@@ -28,7 +30,8 @@ from dolfinx_eqlb_tpu.fem.projection import local_projection
 from dolfinx_eqlb_tpu.mesh import generators as jax_gen
 
 import dolfinx_eqlb_tpu_torch.eqlb.engine as port_engine
-from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
+from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine, k3_admits
+from dolfinx_eqlb_tpu_torch.ops.patch_solve import batched_kkt_solve_plain
 from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
 from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
 from dolfinx_eqlb_tpu_torch.mesh import generators as gen
@@ -41,8 +44,9 @@ _MESHES = {
     "crossed": lambda g: g.unit_square(3),
     "unstructured": lambda g: g.unit_square_unstructured(4),
     # at RT3 the smallest of these meshes whose patches give every KKT
-    # size D = 75, 90, 105 (K3's wide route on the card) and 120 (past the
-    # size rule: torch.linalg.solve); the 4 x 4 one gives only 90 and 120
+    # size D = 75, 90, 105 and 120 (K3's wide route on the card; 120 past
+    # the reference's size rule, where JAX pivots); the 4 x 4 one gives
+    # only 90 and 120
     "unstructured7": lambda g: g.unit_square_unstructured(7),
 }
 # (mesh, k) -> the JAX reference's solver
@@ -187,10 +191,11 @@ class _OneThread:
     pytest.param("unstructured7", 3, id="unstructured7-3"),
 ])
 def test_kkt_equals_semiexplicit(mesh, k, monkeypatch):
-    """At k = 4 the 8-cell patch systems (D = 208) exceed the K3 size rule
-    (D <= 110) and go to torch.linalg.solve; the smaller ones stay on K3.
-    On the unstructured mesh at k = 3 K3 takes D = 75 / 90 / 105 (its wide
-    route on the card) and D = 120 goes to torch.linalg.solve."""
+    """K3 takes exactly the systems of the port's size rule
+    (``k3_admits``).  At k = 4 the 8-cell patch systems (D = 208) exceed it
+    and go to torch.linalg.solve; the smaller ones stay on K3.  On the
+    unstructured mesh at k = 3 K3 takes D = 75 / 90 / 105 / 120 (its wide
+    route on the card), D = 120 past the reference's rule (D <= 110)."""
     sizes, k3 = [], port_engine.batched_kkt_solve
 
     def counted_k3(A, b):
@@ -200,15 +205,57 @@ def test_kkt_equals_semiexplicit(mesh, k, monkeypatch):
     monkeypatch.setattr(port_engine, "batched_kkt_solve", counted_k3)
     with _OneThread() if k == 4 else nullcontext():
         assert _modes_agree(k, False, seed=k, mesh=mesh) < 5e-12
-    assert sizes and max(sizes) <= 110
+    assert sizes and all(k3_admits(D, 1) for D in sizes)
     if mesh == "unstructured7":
-        assert {75, 90, 105} <= set(sizes)
+        assert {75, 90, 105, 120} <= set(sizes)
     if k == 4:
         eng = _port("crossed", 4)
         kk1, ndg = eng.V.element.ndofs_cell, 10
         D = [b.nspokes * 4 + b.ncells * (kk1 + ndg)
              for b in eng.buckets.values()]
         assert len(sizes) < len(D) and max(D) > 110
+        assert 208 in D and 208 not in sizes and not k3_admits(208, 1)
+
+
+def _lu_pivots(A):
+    """The pivots u_jj of the pivot-free LU of each system in A (N, D, D),
+    in K3's elimination order."""
+    A = A.clone()
+    piv = []
+    for j in range(A.shape[-1]):
+        piv.append(A[:, j, j].clone())
+        lcol = A[:, j + 1:, j] / A[:, j, j, None]
+        A[:, j + 1:, j + 1:] -= lcol[:, :, None] * A[:, j, None, j + 1:]
+    return torch.stack(piv, dim=1)
+
+
+def test_kkt_d120_pivot_free_matches_pivoted(monkeypatch):
+    """The D = 120 KKT systems of the unstructured mesh at k = 3 (interior
+    8-cell patches), which the reference solves with pivoting and the port
+    through K3 without: on the engine's own operands, the plain pivot-free
+    solve matches ``torch.linalg.solve`` within 1e-12 relative to max|x|,
+    and no pivot of the pivot-free order comes near zero (smallest
+    |u_jj| / max|A| above 1e-8; 3.1e-5 on this data, two RHS of two
+    patches)."""
+    eng = _port("unstructured7", 3)
+    ops = []
+    solve = eng._kkt_solve
+
+    def record(A, b):
+        if A.shape[-1] == 120:
+            ops.append((A.reshape(-1, 120, 120), b.reshape(-1, 120, 1)))
+        return solve(A, b)
+
+    monkeypatch.setattr(eng, "_kkt_solve", record)
+    eng.equilibrate(*_data(_MESHES["unstructured7"](gen), 3, seed=33))
+    assert ops
+    for A, b in ops:
+        x_plain = batched_kkt_solve_plain(A, b)
+        x_lin = torch.linalg.solve(A, b)
+        scale = float(x_lin.abs().max())
+        assert float((x_plain - x_lin).abs().max()) <= 1e-12 * scale
+        ratio = float(_lu_pivots(A).abs().min() / A.abs().max())
+        assert ratio > 1e-8, ratio
 
 
 @pytest.mark.parametrize("k", [2, 3])
