@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--n 500] [--profile] [--k1-sweep] [--phase22]
-                          [--phase23] [--phase24]
+                          [--phase23] [--phase24] [--phase25]
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc).  It builds the port's CUDA kernels from ``csrc/`` for
@@ -33,7 +33,8 @@ demo's flow, and the multigrid solvers and perftest series; then patch
 sharding over ``torch.distributed`` (K1, K2 on every rank), Gmsh import
 and the ParaView output; then the port's bench, ``bench.py``'s
 counterpart, in its four modes (K1, K2, K4); then the KKT cross-check path
-at RT3 on a 1M-cell unstructured mesh (K3's wide route, K2).
+at RT3 on a 1M-cell unstructured mesh (K3's wide and cluster routes, K2)
+and at RT4 on a 250k-cell one (K3's cluster route, K2).
 
 Phases, one line each:
 
@@ -56,11 +57,14 @@ Phases, one line each:
       (plain versions);
    8. K3 (batch-major pivot-free solve) against its plain version, by the
       route ``k3_plan`` picks (the register route at D <= 64, the wide
-      route at 64 < D <= 128) and by the shared-memory route on the same
-      batch, timed in turns, at the KKT path's shapes and at D = 75, 90,
-      105, 120 (the wide route's, phase 24) at X = 131072 and D = 120 at
-      phase 24's X = 24662; then every route
-      once at a small batch, on each side of each split;
+      route to D + R = 128, the cluster route to 256) and on the same
+      batch by the shared-memory route (beside a register or wide tile)
+      or by the other cluster tiles that cover the shape, timed in turns,
+      at the KKT path's shapes, at D = 75, 90, 105 (the wide route's,
+      phase 24) at X = 131072 and D = 120 at phase 24's X = 24662, and at
+      D = 130, 156, 182, 208 (the cluster route's) at phase 25's bucket
+      sizes, past D + R = 128 against ``torch.linalg.solve`` too; then
+      every route once at a small batch, on each side of each split;
    9. the KKT path, f64 and f32, against the f64 plain route, with K3's
       launches split by route, and K2 against its plain version on one
       more call's combine input;
@@ -179,13 +183,21 @@ Phases, one line each:
       headline's size; what Gmsh users bring), one
       field, every boundary facet kind 1: host set-up seconds, patches by
       system size (D = 75, 90, 105 and 120 for most, on K3's wide route,
-      by the port's size rule ``k3_admits``), strict and pipelined ms, the
+      D = 135 / 150 on its cluster route, by the port's size rule
+      ``k3_admits``), strict and pipelined ms, the
       assembly / solve split (``torch.linalg.solve``'s by D, and the
-      systems it took), peak memory, K3's launches by route (none on the
-      shared route), the result against the f64 plain route, and K3 and
+      systems it took: none of K3's rule), peak memory, K3's launches by
+      route (none on the shared route), the result against the f64 plain
+      route, and K3 and
       K2 against their plain versions on every solve and the combine of
       one more call's own operands, K3 past the reference's size rule
-      (D > 110) against ``torch.linalg.solve`` too.
+      (D > 110) against ``torch.linalg.solve`` too, with the pivots of
+      its pivot-free order on the f64 operands there (smallest
+      |u_jj| / max|A|, which must stay above 1e-8, and against its own
+      row of A; the growth);
+  25. the same at RT4 on ``unit_square_unstructured(ceil(n / sqrt(2)))``
+      (354 at n = 500: 250,636 cells, 126,027 patches), chunk 32768: D =
+      130, 156, 182 and 208 for most, on K3's cluster route.
 
 Kernel times are CUDA-event means of single launches, each after a write
 of 256 MB that leaves the 50 MB L2 cold.  ``--k1-sweep`` only builds the
@@ -193,7 +205,8 @@ kernels and times K1's tile route against its block route (several
 thread counts) over D and X, the measurement ``k1_plan``'s split rests
 on.  ``--phase22`` only builds the kernels and runs phase 22, ``--phase23``
 phase 23, ``--phase24`` phase 8's rows at the wide route's shapes and
-phase 24.
+phase 24, ``--phase25`` phase 8's rows at the cluster route's shapes and
+phase 25.
 ``--profile`` writes its trace through ``utils.profiling.trace`` to
 ``smoke_out/profile``.  Any failure exits non-zero; nothing falls back to
 the CPU.  The line before the last is a JSON object
@@ -218,6 +231,7 @@ K1_REPLACES = "dolfinx_eqlb_tpu/ops/patch_solve.py:42"
 K2_SOURCE = "dolfinx_eqlb_tpu_torch/csrc/lane_select.cu"
 K2_REPLACES = "dolfinx_eqlb_tpu/ops/lane_select.py:30"
 K3_SOURCE = K1_SOURCE
+K3_CLUSTER_SOURCE = "dolfinx_eqlb_tpu_torch/csrc/patch_solve_cluster.cu"
 K3_REPLACES = "dolfinx_eqlb_tpu/ops/patch_solve.py:170"
 K4_SOURCE = K2_SOURCE
 K4_REPLACES = "dolfinx_eqlb_tpu/ops/lane_select.py:90"
@@ -227,10 +241,12 @@ K4_REPLACES = "dolfinx_eqlb_tpu/ops/lane_select.py:90"
 CHUNK = 131072
 # max_patches_per_bucket of the mixed-precision path, bench.py --mixed
 CHUNK_MIXED = 65536
-# H100 SXM: HBM3 bytes/s, and FLOP/s outside the tensor cores (NVIDIA's
-# data sheet; the kernels here use no tensor cores)
+# H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, and the card's peak
+# FLOP/s for each type: f32 outside the tensor cores (TF32 would round the
+# operands), f64 on the tensor cores (DMMA), the f64 peak a solve could
+# reach, though the kernels here use no tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 
 def log(msg: str) -> None:
@@ -934,31 +950,59 @@ def kkt_shapes(engine):
 
 
 # K3 at the wide route's KKT sizes (RT3 on an unstructured mesh: D = 75,
-# 90, 105 and 120, phase 24) at the main path's chunk, and at D = 120 at
-# the size of phase 24's D = 120 bucket (24,662 interior 8-cell patches at
+# 90 and 105, phase 24) at the main path's chunk, and at D = 120 at the
+# size of phase 24's D = 120 bucket (24,662 interior 8-cell patches at
 # n = 500)
 K3_WIDE_SHAPES = [(75, 1, CHUNK), (90, 1, CHUNK), (105, 1, CHUNK),
-                  (120, 1, CHUNK), (120, 1, 24662)]
+                  (120, 1, 24662)]
+# max_patches_per_bucket of phase 25 (the KKT path at RT4): its f64 plain
+# route (torch.linalg.solve) and K3's checks on the call's operands hold
+# about four copies of a bucket's systems, 6.4 GB each at D = 156
+CHUNK_RT4 = 32768
+# K3 at the cluster route's KKT sizes, phase 25's buckets (RT4 on
+# unit_square_unstructured(354) at chunk CHUNK_RT4: 33,458 / 51,730 /
+# 29,072 / 6,142 interior patches of 5-8 cells at D = 130 / 156 / 182 /
+# 208)
+K3_CLUSTER_SHAPES = [(130, 1, CHUNK_RT4), (156, 1, CHUNK_RT4),
+                     (182, 1, 29072), (208, 1, 6142)]
 # (D, R) of phase 8's untimed checks at a small batch: the register tiles
 # 7 x 4 and 8 x 5 at their edges (32, 33, 64), every wide tile at its
 # edges (65 ... 127, R = 2 at the 7 x 7 and 8 x 8 tiles' last columns;
-# 112 the first 8 x 8 shape at R = 1) and the shared-memory route past
-# them (128)
+# 112 the first 8 x 8 shape at R = 1), every cluster tile at its edges
+# (D + R = 129, 160 / 161, 192 / 193 and 256, R = 2 at 2 x (5 x 10) and
+# 4 x (4 x 16)) and at RT3's 9- and 10-cell patches and RT4's 9-cell ones
+# (D = 135, 150, 234)
 K3_EDGE_CHECKS = [(32, 1), (33, 1), (64, 1), (65, 1), (79, 1), (80, 1),
                   (95, 1), (96, 1), (110, 1), (110, 2), (112, 1), (120, 1),
-                  (127, 1), (126, 2), (128, 1)]
+                  (127, 1), (126, 2), (128, 1), (135, 1), (150, 1),
+                  (159, 1), (158, 2), (160, 1), (191, 1), (192, 1),
+                  (234, 1), (255, 1), (254, 2)]
 
 
 def phase_k3(shapes, device, timer, edges=K3_EDGE_CHECKS):
     """K3 against its plain version on random SPD batch-major systems, by
-    the route ``k3_plan`` picks and by the shared-memory route on the same
-    batch; the library call is torch.linalg.solve on the same batch.  Then
-    the route ``k3_plan`` picks once at a small batch, checked and not
-    timed, at each (D, R) of ``edges``, so that every route is launched and
-    checked."""
+    the route ``k3_plan`` picks and, on the same batch, by the routes it is
+    held against (timed in turns): the shared-memory route beside a
+    register or wide tile, every other cluster tile that covers the shape
+    beside a cluster tile.  The library call is torch.linalg.solve on the
+    same batch; past the wide tiles (D + R > 128), where the reference
+    pivots, the planned route is held to it too.  Then the route
+    ``k3_plan`` picks once at a small batch, checked and not timed, at each
+    (D, R) of ``edges``, so that every route is launched and checked."""
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
-        _solve_route, batched_kkt_solve, batched_kkt_solve_plain, k3_plan,
+        K3_CLUSTER_TILES, _solve_route, _tile_covers, batched_kkt_solve,
+        batched_kkt_solve_plain, k3_plan,
     )
+
+    def beside(D, R, route):
+        if route in K3_CLUSTER_TILES:
+            return [rt for rt in K3_CLUSTER_TILES
+                    if rt != route and _tile_covers(rt, D, R)]
+        return ["shared"]
+
+    def linalg_rel(A, b, x):
+        xl = torch.linalg.solve(A, b)
+        return float((x - xl).abs().max()) / float(xl.abs().max())
 
     gen = torch.Generator(device=device).manual_seed(3)
     rows, tiles = [], []
@@ -968,8 +1012,10 @@ def phase_k3(shapes, device, timer, edges=K3_EDGE_CHECKS):
             xp = batched_kkt_solve_plain(A, b)
             scale = float(xp.abs().max())
             route = k3_plan(D, R, dtype)
-            row = dict(dtype=dname(dtype), D=D, R=R, X=X, route=route)
-            for name, rt in (("", route), ("shared_", "shared")):
+            alts = beside(D, R, route)
+            row = dict(dtype=dname(dtype), D=D, R=R, X=X, route=route,
+                       beside=alts)
+            for name, rt in (("", route), *((f"{a}_", a) for a in alts)):
                 x = _solve_route(A, b, rt)
                 sync(device)
                 err = float((x - xp).abs().max())
@@ -977,29 +1023,36 @@ def phase_k3(shapes, device, timer, edges=K3_EDGE_CHECKS):
                 row[f"{name}max_rel_err"] = err / scale
                 row[f"{name}ok"] = (bool(torch.isfinite(x).all())
                                     and err / scale <= tol)
+                if not name and D + R > 128:
+                    row["linalg_max_rel_err"] = linalg_rel(A, b, x)
+                    row["ok"] = row["ok"] and row["linalg_max_rel_err"] <= tol
                 del x
             del xp
-            # routes in turns: register, shared, shared, register
-            t = {route: [], "shared": []}
-            for rt in (route, "shared", "shared", route):
-                t[rt].append(timer.ms(
-                    lambda: _solve_route(A, b, rt), reps=5))
+            # routes in turns: planned, the others, the others, planned;
+            # up to 5 launches a turn, as many as fit in ~150 ms
+            t = {rt: [] for rt in (route, *alts)}
+            for rt in (route, *alts, *alts, route):
+                t[rt].append(timer.fit(
+                    lambda: _solve_route(A, b, rt), budget_ms=150.0))
             row["ms"] = sum(t[route]) / 2
-            row["shared_ms"] = sum(t["shared"]) / 2
+            for a in alts:
+                row[f"{a}_ms"] = sum(t[a]) / 2
             row["plain_ms"] = timer.ms(lambda: batched_kkt_solve_plain(A, b),
-                                       reps=2, warmup=1)
+                                       reps=1, warmup=0)
             row["library_ms"] = timer.ms(lambda: torch.linalg.solve(A, b),
                                          reps=2, warmup=1)
             row["bound_ms"], row["bound_by"] = lu_bound(D, R, X, dtype)
-            row["ok"] = row["ok"] and row["shared_ok"]
+            row["ok"] = row["ok"] and all(row[f"{a}_ok"] for a in alts)
             rows.append(row)
             log(f"    K3 {dname(dtype)} D={D} R={R} X={X}: {route} "
-                f"{row['ms']:.4f} ms (max_rel_err {row['max_rel_err']:.3e}), "
-                f"shared {row['shared_ms']:.4f} ms (max_rel_err "
-                f"{row['shared_max_rel_err']:.3e}), limit {tol:g}; plain "
-                f"{row['plain_ms']:.4f} ms, torch.linalg.solve "
-                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}), share "
+                f"{row['ms']:.4f} ms (max_rel_err {row['max_rel_err']:.3e}"
+                + (f", vs torch.linalg.solve {row['linalg_max_rel_err']:.3e}"
+                   if "linalg_max_rel_err" in row else "") + "), "
+                + "".join(f"{a} {row[f'{a}_ms']:.4f} ms (max_rel_err "
+                          f"{row[f'{a}_max_rel_err']:.3e}), " for a in alts)
+                + f"limit {tol:g}; plain {row['plain_ms']:.4f} ms, "
+                f"torch.linalg.solve {row['library_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), share "
                 f"{row['bound_ms'] / row['ms']:.3f}"
                 f"{'' if row['ok'] else '  FAILED'}")
             del A, b
@@ -1011,11 +1064,18 @@ def phase_k3(shapes, device, timer, edges=K3_EDGE_CHECKS):
             sync(device)
             rel = float((x - xp).abs().max()) / float(xp.abs().max())
             ok = bool(torch.isfinite(x).all()) and rel <= tol
-            tiles.append(dict(dtype=dname(dtype), D=D, R=R, X=4096,
-                              route=route, max_rel_err=rel, ok=ok))
+            tile = dict(dtype=dname(dtype), D=D, R=R, X=4096, route=route,
+                        max_rel_err=rel)
+            if D + R > 128:
+                tile["linalg_max_rel_err"] = linalg_rel(A, b, x)
+                ok = ok and tile["linalg_max_rel_err"] <= tol
+            tile["ok"] = ok
+            tiles.append(tile)
             log(f"    K3 tile check {dname(dtype)} D={D} R={R} X=4096: {route} "
-                f"max_rel_err={rel:.3e} (limit {tol:g})"
-                f"{'' if ok else '  FAILED'}")
+                f"max_rel_err={rel:.3e}"
+                + (f", vs torch.linalg.solve {tile['linalg_max_rel_err']:.3e}"
+                   if "linalg_max_rel_err" in tile else "")
+                + f" (limit {tol:g}){'' if ok else '  FAILED'}")
             del A, b, x, xp
     return rows, tiles
 
@@ -1079,6 +1139,7 @@ def phase_kkt(eng64, msh, device, operand_checks=False):
 
     dp, dr, fk, bv = make_data(msh, eng64.k, 1, seed=4, np_dtype=np.float64)
     fk = torch.as_tensor(fk, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
     ref = engine(torch.float64, "torch")
     dp64 = torch.as_tensor(dp, device=device)
     dr64 = torch.as_tensor(dr, device=device)
@@ -1087,6 +1148,7 @@ def phase_kkt(eng64, msh, device, operand_checks=False):
         ref._bucket_solutions_kkt(dp64, dr64, fk, bv64), ref._combine_src(),
         ref._nfk)
     del ref
+    ref_peak = torch.cuda.max_memory_allocated(device) / 2**30
     scale = float(x_ref.abs().max())
     out = {}
     for dtype in (torch.float64, torch.float32):
@@ -1115,6 +1177,10 @@ def phase_kkt(eng64, msh, device, operand_checks=False):
             del eng._combine_flat
         res["k2_check"] = k2_operand_check(eng, flats[0])
         del flats
+        # the peak of the f64 plain route, and of this dtype's calls with
+        # the checks on their operands
+        res["ref_peak_gib"] = ref_peak
+        res["checks_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         res["finite"] = bool(torch.isfinite(x).all())
         res["shape_ok"] = tuple(x.shape) == tuple(x_ref.shape)
         res["max_abs_err_vs_plain_f64"] = float(
@@ -1135,6 +1201,14 @@ def unstructured_n(n: int) -> int:
     return math.ceil(n * math.sqrt(2))
 
 
+def unstructured_n_rt4(n: int) -> int:
+    """Phase 25's size m: ``unit_square_unstructured(m)`` with a quarter
+    of the headline's cells (m = 354 at n = 500: 250,636 cells, 126,027
+    patches), since an RT4 KKT system holds 26 dofs a cell against RT3's
+    15: ~25 GB of f64 systems a call, a little below phase 24's ~32 GB."""
+    return math.ceil(n / math.sqrt(2))
+
+
 def kkt_patches_by_size(engine) -> dict:
     """Patches of the KKT path by system size D (every bucket, the sizes
     past K3's rule included)."""
@@ -1145,15 +1219,18 @@ def kkt_patches_by_size(engine) -> dict:
     return dict(sorted(sizes.items()))
 
 
-def phase_kkt_unstructured(device, n: int) -> dict:
-    """Phase 24: the KKT cross-check path at RT3 on
+def phase_kkt_unstructured(device, n: int, k: int = 3,
+                           chunk: int = CHUNK) -> dict:
+    """Phases 24 and 25: the KKT cross-check path at RT ``k`` on
     ``unit_square_unstructured(n)`` (what Gmsh users bring), one field,
-    ``make_data``'s random data with every boundary facet kind 1: most of
-    its patch systems have D = 75, 90, 105 or 120 and take K3's wide
-    route.  ``phase_kkt`` on an f64 engine of the mesh (chunk ``CHUNK``),
-    with K3 held against its plain version (and past D = 110 against
-    ``torch.linalg.solve``) on every solve of one more call's own
-    operands; the host set-up seconds beside it."""
+    ``make_data``'s random data with every boundary facet kind 1: at RT3
+    most of its patch systems have D = 75, 90, 105 or 120 and take K3's
+    wide route, D = 135 / 150 its cluster route; at RT4 most have D = 130,
+    156, 182 or 208 and take the cluster route.  ``phase_kkt`` on an f64
+    engine of the mesh (chunk ``chunk``), with K3 held against its plain
+    version (and past D = 110 against ``torch.linalg.solve``) on every
+    solve of one more call's own operands; the host set-up seconds beside
+    it."""
     from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
     from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
     from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
@@ -1168,16 +1245,20 @@ def phase_kkt_unstructured(device, n: int) -> dict:
     buckets = build_patches(msh)
     setup["patches_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    eng64 = EqlbEngine(FunctionSpace(msh, "RT", 3), buckets,
+    eng64 = EqlbEngine(FunctionSpace(msh, "RT", k), buckets,
                        dtype=torch.float64, device=device,
-                       max_patches_per_bucket=CHUNK)
+                       max_patches_per_bucket=chunk)
     setup["tables_s"] = time.perf_counter() - t0
-    res = dict(n=n, cells=msh.num_cells,
+    res = dict(n=n, k=k, chunk=chunk, cells=msh.num_cells,
                patches=sum(b.npatches for b in buckets.values()),
                patches_by_D=kkt_patches_by_size(eng64),
                shapes=kkt_shapes(eng64), setup=setup)
     t0 = time.perf_counter()
     res["paths"] = phase_kkt(eng64, msh, device, operand_checks=True)
+    # the whole run's peak: the f64 plain route and the checks on the
+    # call's operands included
+    res["run_peak_gib"] = max(max(p["ref_peak_gib"], p["checks_peak_gib"])
+                              for p in res["paths"].values())
     res["run_s"] = time.perf_counter() - t0
     res["seconds"] = time.perf_counter() - t_start
     return res
@@ -1185,11 +1266,12 @@ def phase_kkt_unstructured(device, n: int) -> dict:
 
 def report_kkt(kkt: dict, label: str, shapes, nph: int, failures: list,
                nph_this: int) -> None:
-    """Print a KKT phase (9 or 24) and add its failures: a path off the f64
-    plain route, a kernel skipped, a K3 route launched that no shape of
-    the path plans, K2 off its plain version on the call's combine input,
-    and K3 off its plain version on the call's operands where they were
-    checked."""
+    """Print a KKT phase (9, 24 or 25) and add its failures: a path off
+    the f64 plain route, a kernel skipped, a K3 route launched that no
+    shape of the path plans, K2 off its plain version on the call's
+    combine input, K3 off its plain version on the call's operands where
+    they were checked, and a system of K3's rule that torch.linalg.solve
+    took."""
     from dolfinx_eqlb_tpu_torch.eqlb.engine import k3_admits
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import k3_plan
 
@@ -1204,6 +1286,11 @@ def report_kkt(kkt: dict, label: str, shapes, nph: int, failures: list,
                 f"{c['max_rel_err']:.3e}" + (
                     f", vs torch.linalg.solve {c['linalg_max_rel_err']:.3e}"
                     if "linalg_max_rel_err" in c else "")
+                + (f", pivot-free order's smallest |u_jj|/max|A| "
+                   f"{c['pivot_ratio']:.3e} (step {c['pivot_step']}, floor "
+                   f"{PIVOT_FLOOR:g}), |u_jj|/max|row j of A| "
+                   f"{c['pivot_row_ratio']:.3e}, growth {c['growth']:.3f}"
+                   if "pivot_ratio" in c else "")
                 + f" (limit {c['limit']:g})" for c in checks))
         log(f"[{nph_this}/{nph}] KKT path {label} {dt} 1 field: "
             f"first call {r['first_call_s']:.3f} s; strict "
@@ -1237,27 +1324,30 @@ def report_kkt(kkt: dict, label: str, shapes, nph: int, failures: list,
                                        and all(c["ok"] for c in checks)):
             failures.append(f"KKT path {label} {dt}: K3 disagrees with its "
                             f"plain version or torch.linalg.solve on the "
-                            f"call's operands")
+                            f"call's operands, or a pivot of the pivot-free "
+                            f"order fell to {PIVOT_FLOOR:g} of max|A|")
         admitted = [D for D in r["pivoted_systems_by_D"] if k3_admits(D, 1)]
         if admitted:
             failures.append(f"KKT path {label} {dt}: torch.linalg.solve took "
                             f"systems K3's rule admits, D = {admitted}")
 
 
-def report_kkt_unstructured(r: dict, nph: int, failures: list) -> None:
+def report_kkt_unstructured(r: dict, nph: int, failures: list,
+                            nph_this: int = 24) -> None:
     s = r["setup"]
-    log(f"[24/{nph}] KKT path unit_square_unstructured({r['n']}) RT3: "
-        f"{r['cells']} cells, {r['patches']} patches, by KKT size D "
-        f"{r['patches_by_D']}; K3 shapes (D, R, X) {r['shapes']}; host "
-        f"set-up mesh {s['mesh_s']:.2f} s, patches {s['patches_s']:.2f} s, "
-        f"engine tables {s['tables_s']:.2f} s; run {r['run_s']:.1f} s, "
-        f"phase {r['seconds']:.1f} s")
-    report_kkt(r["paths"], f"unit_square_unstructured({r['n']}) RT3",
-               r["shapes"], nph, failures, 24)
+    label = f"unit_square_unstructured({r['n']}) RT{r['k']}"
+    log(f"[{nph_this}/{nph}] KKT path {label}: "
+        f"{r['cells']} cells, {r['patches']} patches (chunk {r['chunk']}), "
+        f"by KKT size D {r['patches_by_D']}; K3 shapes (D, R, X) "
+        f"{r['shapes']}; host set-up mesh {s['mesh_s']:.2f} s, patches "
+        f"{s['patches_s']:.2f} s, engine tables {s['tables_s']:.2f} s; run "
+        f"{r['run_s']:.1f} s (peak {r['run_peak_gib']:.2f} GiB with the f64 "
+        f"plain route and the operand checks), phase {r['seconds']:.1f} s")
+    report_kkt(r["paths"], label, r["shapes"], nph, failures, nph_this)
     for dt, p in r["paths"].items():
         if p["k3_launches_by_route"]["shared"]:
-            failures.append(f"KKT path RT3 unstructured {dt}: K3's shared "
-                            f"route launched at the wide route's shapes")
+            failures.append(f"KKT path {label} {dt}: K3's shared route "
+                            f"launched at the tiled routes' shapes")
 
 
 def phase_mixed(V, buckets, msh, device):
@@ -2339,13 +2429,55 @@ def report_elasticity(r: dict, nph: int, failures: list) -> None:
             failures.append(f"{c['csv']} not reproduced")
 
 
+# the smallest |u_jj| / max|A| that the pivot-free order may meet on the
+# systems the reference pivots (the bar of tests/test_torch_kkt.py)
+PIVOT_FLOOR = 1e-8
+
+
+def lu_pivot_stats(A, chunk: int = 4096) -> dict:
+    """The pivots u_jj of the pivot-free LU of the systems A (..., D, D),
+    in K3's elimination order, computed in f64 on chunks of ``chunk``
+    systems: the smallest |u_jj| / max|A| of a system, the step j where it
+    falls, the smallest |u_jj| against the largest entry of its own row of
+    A (free of the system's scale), and the growth max|U| / max|A|."""
+    D = A.shape[-1]
+    A = A.reshape(-1, D, D)
+    out = dict(pivot_ratio=math.inf, pivot_step=-1,
+               pivot_row_ratio=math.inf, growth=0.0)
+    for s in range(0, A.shape[0], chunk):
+        a = A[s:s + chunk].to(torch.float64, copy=True)
+        amax = a.abs().amax((-1, -2))
+        rowmax = a.abs().amax(-1)
+        piv = a.new_empty(a.shape[:2])
+        umax = a.new_zeros(a.shape[0])
+        for j in range(D):
+            u = a[:, j, j:]
+            piv[:, j] = u[:, 0]
+            umax = torch.maximum(umax, u.abs().amax(-1))
+            if j + 1 < D:
+                lcol = a[:, j + 1:, j] / u[:, :1]
+                a[:, j + 1:, j + 1:] -= lcol[:, :, None] * u[:, None, 1:]
+        ratio = piv.abs() / amax[:, None]
+        worst = int(ratio.min(1).values.argmin())
+        if float(ratio[worst].min()) < out["pivot_ratio"]:
+            out["pivot_ratio"] = float(ratio[worst].min())
+            out["pivot_step"] = int(ratio[worst].argmin())
+        out["pivot_row_ratio"] = min(out["pivot_row_ratio"],
+                                     float((piv.abs() / rowmax).min()))
+        out["growth"] = max(out["growth"], float((umax / amax).max()))
+        del a, piv
+    return out
+
+
 def k3_operand_checks(solves) -> list:
     """K3 against its plain version on captured batch-major operands, one
     row per operand set: within 1e-12 (f64) or 1e-4 (f32) of the plain
     solve relative to its largest entry.  Past the reference's size rule
     (``k3_takes``: D > 110), where the reference pivots, K3 is also held
     to the pivoted ``torch.linalg.solve`` at the same bar, since the plain
-    version shares K3's pivot-free order."""
+    version shares K3's pivot-free order, and, on f64 operands, no pivot
+    of that order may fall to ``PIVOT_FLOOR`` of max|A|
+    (``lu_pivot_stats``)."""
     from dolfinx_eqlb_tpu_torch.eqlb.engine import k3_takes
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
         batched_kkt_solve, batched_kkt_solve_plain, k3_plan,
@@ -2371,6 +2503,9 @@ def k3_operand_checks(solves) -> list:
                                          / float(xl.abs().max()))
             row["ok"] = row["ok"] and row["linalg_max_rel_err"] <= tol
             del xl
+            if A.dtype == torch.float64:  # f32 operands are these rounded
+                row.update(lu_pivot_stats(A))
+                row["ok"] = row["ok"] and row["pivot_ratio"] > PIVOT_FLOOR
         rows.append(row)
         del x
     return rows
@@ -3787,6 +3922,10 @@ def main(argv=None) -> int:
                     help="only build the kernels, run phase 8's K3 checks "
                     "and timings at the wide route's shapes and phase 24 "
                     "(the RT3 KKT path on the unstructured mesh)")
+    ap.add_argument("--phase25", action="store_true",
+                    help="only build the kernels, run phase 8's K3 checks "
+                    "and timings at the cluster route's shapes and phase "
+                    "25 (the RT4 KKT path on the unstructured mesh)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3805,7 +3944,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     failures = []
-    nph = 24
+    nph = 25
 
     card = card_line()
     log(card)
@@ -3849,6 +3988,19 @@ def main(argv=None) -> int:
         report_kkt_unstructured(
             phase_kkt_unstructured(device, unstructured_n(args.n)), nph,
             failures)
+        for f in failures:
+            print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
+        return 1 if failures else 0
+    if args.phase25:
+        log(f"[8/{nph}] K3 (the planned route and the routes beside it) vs "
+            f"plain at {K3_CLUSTER_SHAPES}:")
+        k3, k3_tiles = phase_k3(K3_CLUSTER_SHAPES, device, timer)
+        if not all(r["ok"] for r in k3 + k3_tiles):
+            failures.append("K3 disagrees with its plain version")
+        torch.cuda.empty_cache()
+        report_kkt_unstructured(
+            phase_kkt_unstructured(device, unstructured_n_rt4(args.n), k=4,
+                                   chunk=CHUNK_RT4), nph, failures, 25)
         for f in failures:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
         return 1 if failures else 0
@@ -3945,10 +4097,12 @@ def main(argv=None) -> int:
                        max_patches_per_bucket=CHUNK)
     t_tables64 = time.perf_counter() - t0
     shapes3 = kkt_shapes(eng64)
-    log(f"[8/{nph}] K3 (the planned route and the shared route) vs plain "
-        f"at the KKT path's shapes {shapes3} (f64 engine tables "
-        f"{t_tables64:.2f} s) and the wide route's {K3_WIDE_SHAPES}:")
-    k3, k3_tiles = phase_k3(shapes3 + K3_WIDE_SHAPES, device, timer)
+    log(f"[8/{nph}] K3 (the planned route and the routes beside it) vs "
+        f"plain at the KKT path's shapes {shapes3} (f64 engine tables "
+        f"{t_tables64:.2f} s), the wide route's {K3_WIDE_SHAPES} and the "
+        f"cluster route's {K3_CLUSTER_SHAPES}:")
+    k3, k3_tiles = phase_k3(shapes3 + K3_WIDE_SHAPES + K3_CLUSTER_SHAPES,
+                            device, timer)
     marks.append(("8", time.perf_counter()))
     if not all(r["ok"] for r in k3 + k3_tiles):
         failures.append("K3 disagrees with its plain version")
@@ -4058,6 +4212,12 @@ def main(argv=None) -> int:
     ukkt = phase_kkt_unstructured(device, unstructured_n(args.n))
     marks.append(("24", time.perf_counter()))
     report_kkt_unstructured(ukkt, nph, failures)
+    torch.cuda.empty_cache()
+
+    rkkt = phase_kkt_unstructured(device, unstructured_n_rt4(args.n), k=4,
+                                  chunk=CHUNK_RT4)
+    marks.append(("25", time.perf_counter()))
+    report_kkt_unstructured(rkkt, nph, failures, 25)
 
     log("seconds by phase (host clock, each to the end of its run): "
         + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t) in
@@ -4109,9 +4269,12 @@ def main(argv=None) -> int:
     # slice 7: the bench's timed calls, one process per mode
     for mode, run in bench["runs"].items():
         paths[f"bench_{mode}"] = bench_launch_totals(run)
-    # K3's wide route: the RT3 KKT path on the unstructured mesh
+    # K3's wide and cluster routes: the RT3 and RT4 KKT paths on the
+    # unstructured meshes
     for dt, r in ukkt["paths"].items():
         paths[f"kkt_rt3_unstructured_{dt}"] = r["launches"]
+    for dt, r in rkkt["paths"].items():
+        paths[f"kkt_rt4_unstructured_{dt}"] = r["launches"]
 
     def total(kname):
         return sum(p[kname] for p in paths.values())
@@ -4138,6 +4301,8 @@ def main(argv=None) -> int:
                         + skkt["reduced"]["boundary"]["k3_checks"])
     k3_rt3_checks = [c for r in ukkt["paths"].values()
                      for c in r["k3_checks"]]
+    k3_rt4_checks = [c for r in rkkt["paths"].values()
+                     for c in r["k3_checks"]]
     k3_stress_errs = [c["max_abs_err"] for c in k3_stress_checks]
     # phase 22 (a), (b): K1 and K2 on rank 0's operands of each dry-run
     # case and of the sharded stress headline
@@ -4148,7 +4313,9 @@ def main(argv=None) -> int:
     kkt_k2_checks = {
         **{f"kkt_{dt}": r["k2_check"] for dt, r in kkt.items()},
         **{f"kkt_rt3_unstructured_{dt}": r["k2_check"]
-           for dt, r in ukkt["paths"].items()}}
+           for dt, r in ukkt["paths"].items()},
+        **{f"kkt_rt4_unstructured_{dt}": r["k2_check"]
+           for dt, r in rkkt["paths"].items()}}
     k2_errs = ([r["max_abs_err"] for r in k2]
                + [kc["K2"]["max_abs_err"] for kc in flux_checks]
                + [c["max_abs_err"] for c in kkt_k2_checks.values()])
@@ -4161,7 +4328,8 @@ def main(argv=None) -> int:
         kernel_entry("K3 batched_kkt_solve", K3_SOURCE, K3_REPLACES,
                      total("K3"), biggest(k3, "float64"),
                      [r["max_abs_err"] for r in k3] + k3_stress_errs
-                     + [c["max_abs_err"] for c in k3_rt3_checks]),
+                     + [c["max_abs_err"] for c in k3_rt3_checks
+                        + k3_rt4_checks]),
         kernel_entry("K4 ds_combine_gather", K4_SOURCE, K4_REPLACES,
                      total("K4"), k4[0], [r["max_abs_err"] for r in k4]),
     ]
@@ -4218,32 +4386,40 @@ def main(argv=None) -> int:
     entries[1]["kkt_operands"] = {
         name: {key: c[key] for key in ("dtype", "ndofs", "L", "bitwise")}
         for name, c in kkt_k2_checks.items()}
-    # K3's numbers are those of its largest f64 shape, D = 120 at X = 131072
-    # on the wide route; the shared route beside them, and every timed shape
+    # K3's numbers are those of its largest f64 shape (D = 105 at
+    # X = 131072, on the wide route); the routes timed beside it, and every
+    # timed shape with the routes beside it (the cluster route's among
+    # them)
     k3_row = biggest(k3, "float64")
     entries[2].update(
-        k3_route=k3_row["route"], shared_ms=k3_row["shared_ms"],
-        shared_max_abs_err=max(r["shared_max_abs_err"] for r in k3),
+        k3_route=k3_row["route"], cluster_source=K3_CLUSTER_SOURCE,
+        beside={a: k3_row[f"{a}_ms"] for a in k3_row["beside"]},
+        shared_max_abs_err=max(r["shared_max_abs_err"] for r in k3
+                               if "shared" in r["beside"]),
         launches_by_route={
             **{name: kkt[dt]["k3_launches_by_route"]
                for name, dt in (("kkt_f64", "float64"),
                                 ("kkt_f32", "float32"))},
             **{f"kkt_rt3_unstructured_{dt}": r["k3_launches_by_route"]
                for dt, r in ukkt["paths"].items()},
+            **{f"kkt_rt4_unstructured_{dt}": r["k3_launches_by_route"]
+               for dt, r in rkkt["paths"].items()},
             "stress_kkt_f64": skkt["k3_launches_by_route"],
             **{f"stress_reduced_{name}_f64": red["k3_launches_by_route"]
                for name, red in skkt["reduced"].items()}},
         stress_operands=[{key: c[key] for key in (
             "D", "R", "X", "route", "max_rel_err")}
             for c in k3_stress_checks],
-        rt3_unstructured_operands=[{key: c[key] for key in (
+        **{f"{name}_unstructured_operands": [{key: c[key] for key in (
             "dtype", "D", "R", "X", "route", "max_rel_err",
-            "linalg_max_rel_err") if key in c}
-            for c in k3_rt3_checks],
+            "linalg_max_rel_err") if key in c} for c in checks]
+           for name, checks in (("rt3", k3_rt3_checks),
+                                ("rt4", k3_rt4_checks))},
         shapes=[{key: r[key] for key in (
-            "dtype", "D", "R", "X", "route", "ms", "shared_ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by", "max_rel_err")}
-            for r in k3])
+            "dtype", "D", "R", "X", "route", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_rel_err",
+            "linalg_max_rel_err", *(f"{a}_ms" for a in r["beside"]))
+            if key in r} for r in k3])
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,7 @@ problem).  ``EqlbEngine.equilibrate`` runs one of two modes:
   cross-check the fast path: per bucket, ``_assemble_bucket`` builds one
   dense KKT system per patch from batch-major tables, ``_kkt_solve``
   solves them through K3 (``ops.patch_solve.batched_kkt_solve``) wherever
-  a tiled route of K3 covers the system (``k3_admits``), the
+  a tiled or cluster route of K3 covers the system (``k3_admits``), the
   weak-symmetry correction, if asked for, is the full stress KKT system
   (``stress._weak_symmetry_bucket_kkt``, pivoted), and the flux part of
   the solutions goes through the same combine as above.
@@ -722,8 +722,9 @@ class EqlbEngine:
     def _kkt_solve(self, A, b):
         """Batch-major solve of the flux KKT systems by the port's size
         rule: ``solver="kernel"`` takes K3 for the shapes ``k3_admits``
-        admits (D = 120 at RT3 too, past the reference's rule); the rest go
-        to the pivoted ``torch.linalg.solve``, as in the reference."""
+        admits (D + R <= 256: RT3's D = 120 / 135 / 150 and RT4's up to
+        D = 234, past the reference's rule); the rest go to the pivoted
+        ``torch.linalg.solve``, as in the reference."""
         if self.solver == "kernel" and k3_admits(A.shape[-1], b.shape[-1]):
             return batched_kkt_solve(A, b)
         return torch.linalg.solve(A, b)

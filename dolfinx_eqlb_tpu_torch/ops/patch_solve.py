@@ -19,14 +19,17 @@ and how its design answers.
   (``k1_block_fits``); the global route (one thread per system,
   elimination in place in a global scratch, any D) takes what is left.
 * K3, ``batched_kkt_solve`` (entry ``batched_kkt_solve``): batch-major
-  A (..., P, D, D), the KKT mode's full patch systems, D up to 128; one
-  thread block per system, by one of three routes that ``k3_plan`` picks
-  from the shape: for D <= 64 the register route (each thread of 8 x 16
-  holds a tile of [A | b] in registers, one barrier per elimination step),
-  for 64 < D <= 128 the wide route (the same kernel on 16 x 16 threads),
-  and for what neither covers the shared-memory route ([A | b] staged in
-  shared memory).  ``k3_admits``, the shapes a tiled route covers, is the
-  port's size rule for the flux KKT systems.
+  A (..., P, D, D), the KKT mode's full patch systems, D + R up to 256; by
+  one of four routes that ``k3_plan`` picks from the shape: for D <= 64
+  the register route (each thread of a block of 8 x 16 holds a tile of
+  [A | b] in registers, one barrier per elimination step), for
+  D + R <= 128 the wide route (the same kernel on 16 x 16 threads), for
+  D + R <= 256 the cluster route (a cluster of 2 or 4 blocks of 16 x 16
+  threads holds one system in the registers of as many SMs, row j sent
+  to the peers through distributed shared memory), and for what none
+  covers the shared-memory route ([A | b] staged in one block's shared
+  memory).  ``k3_admits``, the shapes a tiled or cluster route covers, is
+  the port's size rule for the flux KKT systems.
 
 Pivot-free LU is the contract, and it is sound for the callers' systems:
 the semi-explicit engine's reduced matrices are SPD, with identity rows on
@@ -54,7 +57,8 @@ __all__ = ["batched_kkt_solve_bl", "batched_kkt_solve_bl_plain", "k1_plan",
            "K1_TILE_MIN_X", "K1_TILE_SMALL_D",
            "batched_kkt_solve", "batched_kkt_solve_plain", "k3_plan",
            "k3_admits",
-           "K3_REG_TILES", "K3_WIDE_TILES", "K3_ROUTES"]
+           "K3_REG_TILES", "K3_WIDE_TILES", "K3_CLUSTER_TILES",
+           "K3_ROUTES"]
 
 _FUNCS = {torch.float32: "eqlb_lu_solve_bl_f32",
           torch.float64: "eqlb_lu_solve_bl_f64"}
@@ -68,6 +72,8 @@ _FUNCS_BM_REG = {torch.float32: "eqlb_lu_solve_bm_reg_f32",
                  torch.float64: "eqlb_lu_solve_bm_reg_f64"}
 _FUNCS_BM_WIDE = {torch.float32: "eqlb_lu_solve_bm_wide_f32",
                   torch.float64: "eqlb_lu_solve_bm_wide_f64"}
+_FUNCS_BM_CLUSTER = {torch.float32: "eqlb_lu_solve_bm_cluster_f32",
+                     torch.float64: "eqlb_lu_solve_bm_cluster_f64"}
 # dynamic shared memory one thread block can hold: D (D + R) values of
 # K3's shared route, D^2 nt values of K1's tile route, D (D + R) of K1's
 # block route
@@ -121,24 +127,36 @@ K3_REG_TILES = {"reg4x2": (4, 2), "reg7x4": (7, 4), "reg8x5": (8, 5)}
 # tiles.
 K3_WIDE_TILES = {"wide5x5": (5, 5), "wide6x6": (6, 6), "wide7x7": (7, 7),
                  "wide8x8": (8, 8)}
-K3_ROUTES = (*K3_REG_TILES, *K3_WIDE_TILES, "shared")
-# every tiled route, smallest first, and the thread rows of its layout (16
-# thread columns in both)
-_K3_TILES = {**K3_REG_TILES, **K3_WIDE_TILES}
-_TILE_ROWS = {**dict.fromkeys(K3_REG_TILES, 8),
-              **dict.fromkeys(K3_WIDE_TILES, 16)}
+# K3's cluster route: tiles (C, MR, MC), a cluster of C blocks of 16 x 16
+# threads a system, so 16 C thread rows: a tile covers D <= 16 C MR rows
+# and W <= 16 MC columns, for the systems past every block's tile
+# (128 < D + R <= 256): at R = 1 the 2 x (5 x 10) tile takes D = 128-159
+# (RT4's D = 130 / 156, RT3's 9- and 10-cell patches' D = 135 / 150),
+# 4 x (3 x 12) D = 160-191 (RT4's 182) and 4 x (4 x 16) D = 192-255 (RT4's
+# 208 / 234).  The same list is EQLB_K3_CLUSTER_TILES in
+# csrc/patch_solve_cluster.cu, checked at the first launch like the others.
+K3_CLUSTER_TILES = {"cluster2x5x10": (2, 5, 10), "cluster4x3x12": (4, 3, 12),
+                    "cluster4x4x16": (4, 4, 16)}
+K3_ROUTES = (*K3_REG_TILES, *K3_WIDE_TILES, *K3_CLUSTER_TILES, "shared")
+# every tiled route, smallest first, as (thread rows a system, MR, MC): 16
+# thread columns in all of them
+_K3_TILES = {**{rt: (8, *t) for rt, t in K3_REG_TILES.items()},
+             **{rt: (16, *t) for rt, t in K3_WIDE_TILES.items()},
+             **{rt: (16 * c, mr, mc)
+                for rt, (c, mr, mc) in K3_CLUSTER_TILES.items()}}
 
 
 def _tile_covers(route: str, D: int, R: int) -> bool:
-    mr, mc = _K3_TILES[route]
-    return D <= _TILE_ROWS[route] * mr and D + R <= 16 * mc
+    rows, mr, mc = _K3_TILES[route]
+    return D <= rows * mr and D + R <= 16 * mc
 
 
 def k3_admits(D: int, R: int) -> bool:
     """The port's size rule for K3, which the engine's flux KKT stage
-    follows: whether a tiled route (register or wide) covers D x D systems
-    with R right-hand sides, that is D + R <= 128.  It owes nothing to the
-    TPU's VMEM, unlike the reference's rule (``eqlb.engine.k3_takes``)."""
+    follows: whether a tiled route (register, wide or cluster) covers
+    D x D systems with R right-hand sides, that is D + R <= 256.  It owes
+    nothing to the TPU's VMEM, unlike the reference's rule
+    (``eqlb.engine.k3_takes``)."""
     return any(_tile_covers(route, D, R) for route in _K3_TILES)
 
 
@@ -149,9 +167,10 @@ def _shared_fits(D: int, R: int, dtype: torch.dtype) -> bool:
 def k3_plan(D: int, R: int, dtype: torch.dtype) -> str:
     """K3's route for D x D systems with R right-hand sides: the smallest
     register tile that covers [A | b] (``K3_REG_TILES``), else the
-    smallest wide tile (``K3_WIDE_TILES``), else ``"shared"`` (the
-    shared-memory kernel, up to ``SMEM_LIMIT`` bytes of [A | b]); raises if
-    none takes the system."""
+    smallest wide tile (``K3_WIDE_TILES``), else the smallest cluster tile
+    (``K3_CLUSTER_TILES``), else ``"shared"`` (the shared-memory kernel, up
+    to ``SMEM_LIMIT`` bytes of [A | b]); raises if none takes the
+    system."""
     for route in _K3_TILES:
         if _tile_covers(route, D, R):
             return route
@@ -160,7 +179,7 @@ def k3_plan(D: int, R: int, dtype: torch.dtype) -> str:
     raise ValueError(
         f"D={D}, R={R} needs {D * (D + R) * dtype.itemsize} bytes of shared "
         f"memory per system, more than the {SMEM_LIMIT} a thread block can "
-        f"hold")
+        f"hold, and no cluster tile covers D + R > 256")
 
 
 def batched_kkt_solve_bl_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -347,14 +366,18 @@ def batched_kkt_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _check_tile_list(query, planned: dict, what: str) -> None:
     """Raise unless ``query`` (the library's tile list of a tiled route,
-    MR0, MC0, MR1, ...) reports the tiles of ``planned``, in order."""
-    buf = (ctypes.c_int64 * (2 * len(planned) + 2))()
+    the values of each tile in a row: MR0, MC0, MR1, ... or C0, MR0, MC0,
+    C1, ...) reports the tiles of ``planned``, in order."""
+    tiles = list(planned.values())
+    width = len(tiles[0])
+    buf = (ctypes.c_int64 * (width * len(tiles) + width))()
     n = query(ctypes.addressof(buf), len(buf))
-    built = [tuple(buf[2 * e:2 * e + 2]) for e in range(min(n, len(buf) // 2))]
-    if n != len(planned) or built != list(planned.values()):
+    built = [tuple(buf[width * e:width * e + width])
+             for e in range(min(n, len(buf) // width))]
+    if n != len(tiles) or built != tiles:
         raise RuntimeError(
             f"the kernel library was built with {what} tiles {built} "
-            f"({n}), the wrapper plans {list(planned.values())}")
+            f"({n}), the wrapper plans {tiles}")
     _tiles_checked_k3.add(what)
 
 
@@ -366,6 +389,12 @@ def _check_reg_tiles(lib) -> None:
 def _check_wide_tiles(lib) -> None:
     """Raise unless the library's wide tiles are ``K3_WIDE_TILES``."""
     _check_tile_list(lib.eqlb_lu_solve_bm_wide_tiles, K3_WIDE_TILES, "wide")
+
+
+def _check_cluster_tiles(lib) -> None:
+    """Raise unless the library's cluster tiles are ``K3_CLUSTER_TILES``."""
+    _check_tile_list(lib.eqlb_lu_solve_bm_cluster_tiles, K3_CLUSTER_TILES,
+                     "cluster")
 
 
 # the tiled routes whose tile list was held against the library
@@ -418,13 +447,20 @@ def _solve_route(A: torch.Tensor, b: torch.Tensor,
             code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
                                       x.data_ptr(), N, D, R,
                                       *K3_REG_TILES[route], stream)
-        else:
+        elif route in K3_WIDE_TILES:
             if "wide" not in _tiles_checked_k3:
                 _check_wide_tiles(lib)
             name = _FUNCS_BM_WIDE[A.dtype]
             code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
                                       x.data_ptr(), N, D, R,
                                       *K3_WIDE_TILES[route], stream)
+        else:
+            if "cluster" not in _tiles_checked_k3:
+                _check_cluster_tiles(lib)
+            name = _FUNCS_BM_CLUSTER[A.dtype]
+            code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
+                                      x.data_ptr(), N, D, R,
+                                      *K3_CLUSTER_TILES[route], stream)
         _build.check(code, name)
     batched_kkt_solve.launches += 1
     batched_kkt_solve.launches_by_route[route] += 1

@@ -33,12 +33,14 @@ from dolfinx_eqlb_tpu_torch.mesh import unit_square, unit_square_unstructured
 from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
     K1_ROUTES, K1_TILE_MAX_D, K1_TILE_MAX_D_R1, K1_TILE_MIN_X,
     K1_TILE_SMALL_D, K1_TILES,
-    K3_REG_TILES, K3_WIDE_TILES, SMEM_LIMIT, _check_reg_tiles, _check_tiles,
+    K3_CLUSTER_TILES, K3_REG_TILES, K3_WIDE_TILES, SMEM_LIMIT,
+    _check_cluster_tiles, _check_reg_tiles, _check_tiles,
     _check_wide_tiles, _solve_route,
     _solve_route_bl, batched_kkt_solve, batched_kkt_solve_bl,
     batched_kkt_solve_bl_plain, batched_kkt_solve_plain, k1_block_fits,
     k1_block_threads, k1_plan, k1_tile_threads, k3_plan,
 )
+from tests.test_torch_kkt import _OneThread
 
 torch.set_num_threads(2)
 
@@ -316,20 +318,22 @@ def _spd_batch_bm(lead, D, R, seed):
 
 
 @pytest.mark.parametrize("D", [16, 28, 32, 33, 56, 64, 65, 75, 90, 104, 105,
-                               108, 110, 120, 127])
+                               108, 110, 120, 127, 130, 135, 156])
 def test_k3_plain_matches_pallas_and_linalg(D):
     """Leading axes (2, P) are folded, as the KKT mode's (n_rhs, P).  D = 32,
     33, 64 and 65 sit on the boundaries of K3's register tiles and of its
     register route; 75, 90, 105 and 120 are the KKT sizes of RT3 on
     unstructured meshes, 104 and 108 those of RT4, 110 the last D of the
-    reference's size rule and 127 the last of the port's at R = 1, all on
-    the wide route."""
+    reference's size rule and 127 the last of the wide route at R = 1;
+    130, 135 and 156 (RT4's 5- and 6-cell patches, RT3's 9-cell ones) are
+    on the cluster route."""
     A, b = _spd_batch_bm((2, 9), D, 1, seed=D)
     x_jax = np.asarray(jax_k3(jnp.asarray(A, jnp.float64),
                               jnp.asarray(b, jnp.float64)))
     At, bt = torch.tensor(A), torch.tensor(b)
     x_plain = batched_kkt_solve_plain(At, bt).numpy()
-    x_lin = torch.linalg.solve(At, bt).numpy()
+    with _OneThread():
+        x_lin = torch.linalg.solve(At, bt).numpy()
     assert x_plain.shape == x_jax.shape == b.shape
     scale = np.abs(x_jax).max()
     assert np.abs(x_plain - x_jax).max() <= 1e-12 * scale
@@ -372,21 +376,28 @@ def test_k3_plan_covers_every_size(R, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k3_plan_shared_only_past_wide(dtype):
-    """The shared-memory route takes a shape only where no wide tile covers
-    it (D > 128 or D + R > 128) and [A | b] fits a block; past that k3_plan
+    """The shared-memory route takes a shape only where no tiled route
+    covers it, the cluster tiles included (D + R > 256), and [A | b] fits a
+    block; a shape past the wide tiles (D + R > 128) that a cluster tile
+    covers goes to the smallest such tile; past all of them k3_plan
     raises."""
-    biggest = max(K3_WIDE_TILES.values())
-    for D in range(100, 170):
-        for R in (1, 2, 8):
-            covered = D <= 16 * biggest[0] and D + R <= 16 * biggest[1]
+    wide = max(K3_WIDE_TILES.values())
+    for D in [*range(100, 170), 200, 240, 255, 256, 300]:
+        for R in (1, 2, 8, 60, 160):
+            covered = D <= 16 * wide[0] and D + R <= 16 * wide[1]
+            clusters = [rt for rt, (c, mr, mc) in K3_CLUSTER_TILES.items()
+                        if D <= 16 * c * mr and D + R <= 16 * mc]
             fits = D * (D + R) * dtype.itemsize <= SMEM_LIMIT
             if covered:
                 assert k3_plan(D, R, dtype) in K3_WIDE_TILES, (D, R)
+            elif clusters:
+                assert k3_plan(D, R, dtype) == clusters[0], (D, R)
             elif fits:
                 assert k3_plan(D, R, dtype) == "shared", (D, R)
             else:
                 with pytest.raises(ValueError):
                     k3_plan(D, R, dtype)
+    assert k3_plan(10, 300, dtype) == "shared"  # D + R > 256, 24 KB or less
 
 
 @pytest.mark.parametrize("k", [1, 2, 3])
@@ -416,7 +427,8 @@ def test_k3_wrapper_routes_on_cpu():
     At, bt = torch.tensor(A), torch.tensor(b)
     before = dict(batched_kkt_solve.launches_by_route)
     ref = batched_kkt_solve_plain(At, bt)
-    for route in ("reg4x2", "reg8x5", "wide5x5", "wide7x7", "shared"):
+    for route in ("reg4x2", "reg8x5", "wide5x5", "wide7x7", "cluster2x5x10",
+                  "cluster4x4x16", "shared"):
         torch.testing.assert_close(_solve_route(At, bt, route),
                                    ref, rtol=0, atol=0)
     A, b = _spd_batch_bm((3,), 90, 1, seed=5)  # D = 90, R = 1: wide6x6
@@ -439,27 +451,60 @@ def test_k3_wrapper_routes_on_cpu():
 def test_k3_plan_wide8x8_edges(dtype):
     """The 8 x 8 wide tile takes the shapes past 7 x 7 up to D + R = 128
     (D = 120 at RT3 on unstructured meshes, the 24,662 interior 8-cell
-    patches of the 1M-cell mesh); 7 x 7 keeps its own edge, the
-    shared-memory route takes what comes after."""
+    patches of the 1M-cell mesh); 7 x 7 keeps its own edge, the cluster
+    route's first tile takes what comes after."""
     for D, R in ((112, 1), (111, 2), (113, 1), (120, 1), (120, 2),
                  (127, 1), (126, 2)):
         assert k3_plan(D, R, dtype) == "wide8x8", (D, R)
     for D, R in ((111, 1), (110, 2)):
         assert k3_plan(D, R, dtype) == "wide7x7", (D, R)
     for D, R in ((128, 1), (127, 2), (129, 1), (135, 1), (150, 1)):
-        assert k3_plan(D, R, dtype) == "shared", (D, R)
+        assert k3_plan(D, R, dtype) == "cluster2x5x10", (D, R)
 
 
 def test_k3_size_rules():
     """The port's rule (``k3_admits``, the engine's flux KKT stage) admits
-    every shape a tiled route covers: RT3's D = 120, not D = 135 / 150 or
-    RT4's D = 208; the reference's rule (``k3_takes``, kept by the reduced
-    weak-symmetry systems) stops at D = 110 as before."""
+    every shape a tiled or cluster route covers, D + R <= 256: RT3's
+    D = 120 / 135 / 150 and RT4's D = 130-234, not D + R = 257; the
+    reference's rule (``k3_takes``, kept by the reduced weak-symmetry
+    systems) stops at D = 110 as before."""
     assert port_engine.k3_admits is k3_admits
-    assert all(k3_admits(D, 1) for D in (33, 75, 90, 105, 110, 120, 127))
-    assert k3_admits(126, 2) and not k3_admits(127, 2)
-    assert not any(k3_admits(D, 1) for D in (128, 135, 150, 208))
+    assert all(k3_admits(D, 1) for D in (33, 75, 90, 105, 110, 120, 127,
+                                         128, 135, 150, 208, 234, 255))
+    assert k3_admits(126, 2) and k3_admits(254, 2) and not k3_admits(255, 2)
+    assert not any(k3_admits(D, 1) for D in (256, 260, 300))
+    assert all(k3_admits(D, R) == (D + R <= 256)
+               for D in range(1, 300, 7) for R in (1, 2, 5, 40))
     assert [D for D in range(1, 300) if k3_takes(D)] == list(range(1, 111))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D,R,route", [
+    (127, 1, "wide8x8"), (128, 1, "cluster2x5x10"),     # D + R = 128 / 129
+    (126, 2, "wide8x8"), (127, 2, "cluster2x5x10"),
+    (159, 1, "cluster2x5x10"), (160, 1, "cluster4x3x12"),  # 160 / 161
+    (158, 2, "cluster2x5x10"), (159, 2, "cluster4x3x12"),
+    (191, 1, "cluster4x3x12"), (192, 1, "cluster4x4x16"),  # 192 / 193
+    (255, 1, "cluster4x4x16"), (256, 1, None),            # 256 / 257
+    (254, 2, "cluster4x4x16"), (255, 2, None),
+    (130, 1, "cluster2x5x10"), (156, 1, "cluster2x5x10"),  # RT4's KKT sizes
+    (182, 1, "cluster4x3x12"), (208, 1, "cluster4x4x16"),
+    (234, 1, "cluster4x4x16"), (135, 1, "cluster2x5x10"),  # RT3's 9 and 10
+    (150, 1, "cluster2x5x10"),                             # cell patches
+])
+def test_k3_plan_cluster_edges(D, R, route, dtype):
+    """The cluster route takes every shape past the wide tiles up to
+    D + R = 256, each on the smallest cluster tile that covers it; past
+    that ``k3_admits`` refuses the shape and no tiled route takes it."""
+    if route is None:
+        assert not k3_admits(D, R)
+        with pytest.raises(ValueError):  # nor does [A | b] fit a block
+            k3_plan(D, R, dtype)
+        return
+    assert k3_admits(D, R) and k3_plan(D, R, dtype) == route
+    if route in K3_CLUSTER_TILES:
+        c, mr, mc = K3_CLUSTER_TILES[route]
+        assert D <= 16 * c * mr and D + R <= 16 * mc
 
 
 def test_weak_symmetry_reduced_keeps_reference_rule(monkeypatch):
@@ -546,6 +591,32 @@ def test_k3_wide_tile_check(tiles, ok):
             _check_wide_tiles(_WideTileLib(tiles))
 
 
+class _ClusterTileLib(_TileLib):
+    """Stands in for the kernel library's cluster-tile query."""
+
+    def eqlb_lu_solve_bm_cluster_tiles(self, addr, cap):
+        return self.eqlb_lu_solve_bm_reg_tiles(addr, cap)
+
+
+@pytest.mark.parametrize("tiles,ok", [
+    (list(K3_CLUSTER_TILES.values()), True),
+    ([(2, 5, 10), (4, 3, 12), (4, 4, 16), (8, 4, 16)], False),  # one more
+    ([(2, 5, 10), (4, 4, 16)], False),  # a tile the plan names is not built
+    ([(4, 3, 12), (2, 5, 10), (4, 4, 16)], False),  # another order
+    ([(2, 5, 10), (4, 3, 12), (2, 4, 16)], False),  # another cluster size
+    ([(5, 10), (3, 12), (4, 16)], False),  # pairs, not triples
+])
+def test_k3_cluster_tile_check(tiles, ok):
+    """The cluster route's first launch holds the library's built tiles
+    (cluster size, MR, MC) against ``K3_CLUSTER_TILES`` and raises on any
+    difference."""
+    if ok:
+        _check_cluster_tiles(_ClusterTileLib(tiles))
+    else:
+        with pytest.raises(RuntimeError):
+            _check_cluster_tiles(_ClusterTileLib(tiles))
+
+
 def test_k3_wrapper_rejects_bad_args():
     A = torch.zeros(3, 6, 6, dtype=torch.float64)
     b = torch.zeros(3, 6, 1, dtype=torch.float64)
@@ -557,9 +628,10 @@ def test_k3_wrapper_rejects_bad_args():
         batched_kkt_solve(A, b.float())
     with pytest.raises(ValueError):  # the kernel needs contiguous operands
         batched_kkt_solve(A.transpose(1, 2), b)
-    with pytest.raises(ValueError):  # [A | b] exceeds a block's shared memory
-        batched_kkt_solve(torch.zeros(1, 200, 200, dtype=torch.float64),
-                          torch.zeros(1, 200, 1, dtype=torch.float64))
+    with pytest.raises(ValueError):  # [A | b] exceeds a block's shared
+        # memory and D + R > 256 exceeds every cluster tile
+        batched_kkt_solve(torch.zeros(1, 300, 300, dtype=torch.float64),
+                          torch.zeros(1, 300, 1, dtype=torch.float64))
 
 
 def test_k4_plain_matches_pallas_ds_combine(monkeypatch):

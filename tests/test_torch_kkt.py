@@ -31,7 +31,9 @@ from dolfinx_eqlb_tpu.mesh import generators as jax_gen
 
 import dolfinx_eqlb_tpu_torch.eqlb.engine as port_engine
 from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine, k3_admits
-from dolfinx_eqlb_tpu_torch.ops.patch_solve import batched_kkt_solve_plain
+from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
+    batched_kkt_solve_plain, k3_plan,
+)
 from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
 from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
 from dolfinx_eqlb_tpu_torch.mesh import generators as gen
@@ -175,8 +177,8 @@ def _modes_agree(k, essential, seed, mesh="crossed"):
 
 class _OneThread:
     """torch.linalg.solve on the CPU build of torch 2.13 (MKL 2024.2) hangs
-    on batched systems of D >= ~160 when it runs on more than one thread;
-    the k = 4 case solves D = 208 systems on one."""
+    on batched systems of D >= ~156 when it runs on more than one thread:
+    every test solve of such systems runs on one."""
 
     def __enter__(self):
         self.n = torch.get_num_threads()
@@ -192,10 +194,11 @@ class _OneThread:
 ])
 def test_kkt_equals_semiexplicit(mesh, k, monkeypatch):
     """K3 takes exactly the systems of the port's size rule
-    (``k3_admits``).  At k = 4 the 8-cell patch systems (D = 208) exceed it
-    and go to torch.linalg.solve; the smaller ones stay on K3.  On the
-    unstructured mesh at k = 3 K3 takes D = 75 / 90 / 105 / 120 (its wide
-    route on the card), D = 120 past the reference's rule (D <= 110)."""
+    (``k3_admits``), which is every system of these paths: at k = 4 the
+    8-cell patch systems (D = 208) go to K3's cluster route on the card,
+    the smaller ones to its register and wide routes.  On the unstructured
+    mesh at k = 3 K3 takes D = 75 / 90 / 105 / 120 (its wide route on the
+    card), D = 120 past the reference's rule (D <= 110)."""
     sizes, k3 = [], port_engine.batched_kkt_solve
 
     def counted_k3(A, b):
@@ -206,56 +209,88 @@ def test_kkt_equals_semiexplicit(mesh, k, monkeypatch):
     with _OneThread() if k == 4 else nullcontext():
         assert _modes_agree(k, False, seed=k, mesh=mesh) < 5e-12
     assert sizes and all(k3_admits(D, 1) for D in sizes)
+    eng = _port(mesh, k)
+    # one call of each mode, each bucket solved once in the KKT one
+    assert sorted(sizes) == sorted(eng.kkt_size(key)[0] for key in eng.buckets)
     if mesh == "unstructured7":
         assert {75, 90, 105, 120} <= set(sizes)
     if k == 4:
-        eng = _port("crossed", 4)
-        kk1, ndg = eng.V.element.ndofs_cell, 10
-        D = [b.nspokes * 4 + b.ncells * (kk1 + ndg)
-             for b in eng.buckets.values()]
-        assert len(sizes) < len(D) and max(D) > 110
-        assert 208 in D and 208 not in sizes and not k3_admits(208, 1)
+        assert 208 in sizes and k3_admits(208, 1)
+        assert k3_plan(208, 1, torch.float64) == "cluster4x4x16"
 
 
 def _lu_pivots(A):
     """The pivots u_jj of the pivot-free LU of each system in A (N, D, D),
-    in K3's elimination order."""
-    A = A.clone()
-    piv = []
+    in K3's elimination order, and the growth max|U| / max|A| of each."""
+    A0, A = A, A.clone()
+    piv, umax = [], A.new_zeros(A.shape[0])
     for j in range(A.shape[-1]):
         piv.append(A[:, j, j].clone())
+        umax = torch.maximum(umax, A[:, j, j:].abs().amax(-1))
         lcol = A[:, j + 1:, j] / A[:, j, j, None]
         A[:, j + 1:, j + 1:] -= lcol[:, :, None] * A[:, j, None, j + 1:]
-    return torch.stack(piv, dim=1)
+    return torch.stack(piv, dim=1), umax / A0.abs().amax((-1, -2))
 
 
-def test_kkt_d120_pivot_free_matches_pivoted(monkeypatch):
-    """The D = 120 KKT systems of the unstructured mesh at k = 3 (interior
-    8-cell patches), which the reference solves with pivoting and the port
-    through K3 without: on the engine's own operands, the plain pivot-free
-    solve matches ``torch.linalg.solve`` within 1e-12 relative to max|x|,
-    and no pivot of the pivot-free order comes near zero (smallest
-    |u_jj| / max|A| above 1e-8; 3.1e-5 on this data, two RHS of two
-    patches)."""
-    eng = _port("unstructured7", 3)
+# (k, D) -> smallest |u_jj| / max|A| of the pivot-free order on the
+# operands of ``_pivot_free_matches_pivoted`` (two RHS), measured here.  At
+# RT4 it is ~200x below RT3's D = 120 because of scale, not growth: the
+# smallest pivot of each system falls in the flux block, mostly on the
+# cells' interior RT4 dofs (steps 41-121 of D = 130-208, never in the
+# constraint block), where the RT4 mass matrix's entries span more (max|A|
+# 1.1-3.7e4 a system against 2.4-2.7e2 at RT3); against the largest
+# entry of its own row of A it is 3.9e-5 or more (1.6e-3 at RT3), and no
+# entry of U exceeds max|A| (growth 0.02-0.07 at RT4, 0.38-0.41 at RT3).
+PIVOT_RATIOS = {(3, 120): 3.06e-5, (4, 130): 1.48e-7, (4, 156): 1.45e-7,
+                (4, 182): 1.06e-7, (4, 208): 1.73e-7}
+
+
+def _pivot_free_matches_pivoted(k, D, seed, monkeypatch):
+    """On the engine's own D-sized KKT operands at RT ``k`` on the
+    unstructured mesh, which the reference solves with pivoting and the
+    port through K3 without: the plain pivot-free solve is within
+    1e-12 * max|x| of ``torch.linalg.solve`` (on one thread: the CPU
+    MKL hang), no pivot of the pivot-free order comes near zero (smallest
+    |u_jj| / max|A| above 1e-8 and within 10x of ``PIVOT_RATIOS``;
+    against its own row of A above 1e-6) and the elimination does not
+    grow the entries."""
+    eng = _port("unstructured7", k)
     ops = []
     solve = eng._kkt_solve
 
     def record(A, b):
-        if A.shape[-1] == 120:
-            ops.append((A.reshape(-1, 120, 120), b.reshape(-1, 120, 1)))
+        if A.shape[-1] == D:
+            ops.append((A.reshape(-1, D, D), b.reshape(-1, D, 1)))
         return solve(A, b)
 
     monkeypatch.setattr(eng, "_kkt_solve", record)
-    eng.equilibrate(*_data(_MESHES["unstructured7"](gen), 3, seed=33))
-    assert ops
+    eng.equilibrate(*_data(_MESHES["unstructured7"](gen), k, seed=seed))
+    assert ops and k3_admits(D, 1)
     for A, b in ops:
         x_plain = batched_kkt_solve_plain(A, b)
-        x_lin = torch.linalg.solve(A, b)
+        with _OneThread():
+            x_lin = torch.linalg.solve(A, b)
         scale = float(x_lin.abs().max())
         assert float((x_plain - x_lin).abs().max()) <= 1e-12 * scale
-        ratio = float(_lu_pivots(A).abs().min() / A.abs().max())
+        piv, growth = _lu_pivots(A)
+        ratio = float(piv.abs().min() / A.abs().max())
         assert ratio > 1e-8, ratio
+        assert ratio > 0.1 * PIVOT_RATIOS[k, D], ratio
+        assert float((piv.abs() / A.abs().amax(-1)).min()) > 1e-6
+        assert float(growth.max()) < 1.0
+
+
+def test_kkt_d120_pivot_free_matches_pivoted(monkeypatch):
+    """The D = 120 KKT systems of the unstructured mesh at k = 3 (interior
+    8-cell patches), on K3's wide route on the card."""
+    _pivot_free_matches_pivoted(3, 120, 33, monkeypatch)
+
+
+@pytest.mark.parametrize("D", [130, 156, 182, 208])
+def test_kkt_rt4_pivot_free_matches_pivoted(D, monkeypatch):
+    """RT4's D > 128 systems (interior patches of 5-8 cells), every one
+    that ``k3_admits`` admits, on K3's cluster route on the card."""
+    _pivot_free_matches_pivoted(4, D, 45, monkeypatch)
 
 
 @pytest.mark.parametrize("k", [2, 3])
