@@ -1,0 +1,1 @@
+"""The plain reference: NumPy and plain PyTorch only, nothing of the program."""
