@@ -44,6 +44,16 @@ an even split over ranks, ``parallel.ShardedEqlbEngine``); tables taken
 from the reference engine (``from_host_tables``) may carry pad rows too.
 A pad row repeats the last patch with ``gdofs == ndofs``, which keeps it
 out of the combine.
+
+Each call opens the spans of ``utils.profiling`` (recorded only inside a
+``recording()`` block): ``eqlb.call`` (``mode``, ``n_rhs``, ``buckets``)
+over ``eqlb.input`` (the boundary data's upload, the inputs' cast and
+batch-last transpose), one ``se.bucket`` (``se.load_moments``,
+``se.explicit``, ``se.reduced_rhs``, ``se.reduced_solve``) or
+``kkt.bucket`` (``kkt.assemble`` over ``kkt.element_data``, then
+``kkt.solve``) a bucket, ``eqlb.concat`` and ``eqlb.combine``; a solve
+span carries the ``route`` it took.  The first call also builds the
+geometry caches inside ``eqlb.call``.
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ from ..ops.lane_select import combine_gather, ds_combine_gather
 from ..ops.patch_solve import (
     batched_kkt_solve, batched_kkt_solve_bl, k3_admits,
 )
+from ..utils.profiling import annotate, span
 from .patches import PatchBucket, bucket_dof_tables
 from .semiexplicit import (
     boundary_ess_bl, combo_tensors, mass_matrices_bl, reduced_basis,
@@ -571,32 +582,14 @@ class EqlbEngine:
                 "transposed_inputs=True requires the fused semi-explicit "
                 "path (mode='semiexplicit', fuse=True): the batch-major "
                 "fallback would silently mis-gather batch-last arrays")
-        fk = self._input(facet_kind)
-        bv = self._input(bvals, self.dtype)
-        if weak_symmetry and fk.shape[0] < 2:
-            raise ValueError("weak symmetry needs two stress rows")
-        ws_skip = None
-        if (weak_symmetry and ws_skip_nodes is not None
-                and len(ws_skip_nodes)):
-            if fuse is False:
-                raise ValueError(
-                    "fuse=False does not support ws_skip_nodes (grouped "
-                    "deficient patches): the unfused path would solve the "
-                    "singular per-patch weak-symmetry systems anyway")
-            # one entry per table row: pad rows follow the real patches
-            ws_skip = {}
-            for key, b in self.buckets.items():
-                m = np.zeros(self.tables[key]["gdofs"].shape[0], dtype=bool)
-                m[:b.npatches] = np.isin(b.nodes, ws_skip_nodes)
-                ws_skip[key] = torch.as_tensor(m, device=self.device)
-        with _full_f32_matmul():
-            if self.mode == "kkt":
-                dp = self._input(sigma_proj_dofs, self.dtype)
-                dr = self._input(rhs_dofs, self.dtype)
-                flat = self._bucket_solutions_kkt(dp, dr, fk, bv,
-                                                  weak_symmetry)
-            else:
-                if transposed_inputs:
+        with span("eqlb.call", mode=self.mode, buckets=len(self.buckets)):
+            with span("eqlb.input"):
+                fk = self._input(facet_kind)
+                bv = self._input(bvals, self.dtype)
+                if self.mode == "kkt":
+                    dp = self._input(sigma_proj_dofs, self.dtype)
+                    dr = self._input(rhs_dofs, self.dtype)
+                elif transposed_inputs:
                     dpT, drT = sigma_proj_dofs, rhs_dofs
                 elif isinstance(sigma_proj_dofs, torch.Tensor):
                     dpT = self._input(sigma_proj_dofs, self.dtype).movedim(
@@ -605,11 +598,35 @@ class EqlbEngine:
                         1, -1).contiguous()
                 else:
                     dpT, drT = self.put_transposed(sigma_proj_dofs, rhs_dofs)
-                if weak_symmetry:
-                    self.ensure_stress_caches()
-                flat = self._bucket_solutions(dpT, drT, fk, bv,
-                                              weak_symmetry, ws_skip)
-            return self._combine_flat(flat)
+            annotate(n_rhs=fk.shape[0])
+            if weak_symmetry and fk.shape[0] < 2:
+                raise ValueError("weak symmetry needs two stress rows")
+            ws_skip = None
+            if (weak_symmetry and ws_skip_nodes is not None
+                    and len(ws_skip_nodes)):
+                if fuse is False:
+                    raise ValueError(
+                        "fuse=False does not support ws_skip_nodes (grouped "
+                        "deficient patches): the unfused path would solve "
+                        "the singular per-patch weak-symmetry systems anyway")
+                # one entry per table row: pad rows follow the real patches
+                ws_skip = {}
+                for key, b in self.buckets.items():
+                    m = np.zeros(self.tables[key]["gdofs"].shape[0],
+                                 dtype=bool)
+                    m[:b.npatches] = np.isin(b.nodes, ws_skip_nodes)
+                    ws_skip[key] = torch.as_tensor(m, device=self.device)
+            with _full_f32_matmul():
+                if self.mode == "kkt":
+                    flat = self._bucket_solutions_kkt(dp, dr, fk, bv,
+                                                      weak_symmetry)
+                else:
+                    if weak_symmetry:
+                        self.ensure_stress_caches()
+                    flat = self._bucket_solutions(dpT, drT, fk, bv,
+                                                  weak_symmetry, ws_skip)
+                with span("eqlb.combine"):
+                    return self._combine_flat(flat)
 
     def _check_options(self):
         for name, allowed in (("mode", _MODES), ("solver", _SOLVERS),
@@ -644,8 +661,9 @@ class EqlbEngine:
                 if "sing" in record:
                     self.ws_sing[key] = record["sing"]
             flats.append(sol_bl.reshape(n_rhs, -1))
-        flats.append(dprT.new_zeros((n_rhs, 1)))
-        return torch.cat(flats, dim=1)
+        with span("eqlb.concat"):
+            flats.append(dprT.new_zeros((n_rhs, 1)))
+            return torch.cat(flats, dim=1)
 
     def _bucket_solutions_kkt(self, d_proj, d_rhs, facet_kind, bvals,
                               weak_symmetry=False):
@@ -659,17 +677,24 @@ class EqlbEngine:
         n_rhs = d_proj.shape[0]
         flats = []
         for key in sorted(self.buckets.keys()):
-            Ar, br, nflux = self._assemble_bucket(
-                key, d_proj, d_rhs, facet_kind, bvals, kdev[key], krefd)
-            sol = self._kkt_solve(Ar, br[..., None])[..., :nflux, 0]
-            if weak_symmetry:
-                sol[:2] += _weak_symmetry_bucket_kkt(
-                    self, key, sol[:2], facet_kind[:2], d_proj[:2],
-                    kdev[key], krefd)
-            flats.append(sol.transpose(1, 2).reshape(n_rhs, -1))
-            del Ar, br, sol
-        flats.append(d_proj.new_zeros((n_rhs, 1)))
-        return torch.cat(flats, dim=1)
+            with span("kkt.bucket", key=key, P=kdev[key]["J"].shape[0],
+                      D=self.kkt_size(key)[0],
+                      boundary=self.buckets[key].is_boundary):
+                with span("kkt.assemble"):
+                    Ar, br, nflux = self._assemble_bucket(
+                        key, d_proj, d_rhs, facet_kind, bvals, kdev[key],
+                        krefd)
+                with span("kkt.solve"):
+                    sol = self._kkt_solve(Ar, br[..., None])[..., :nflux, 0]
+                if weak_symmetry:
+                    sol[:2] += _weak_symmetry_bucket_kkt(
+                        self, key, sol[:2], facet_kind[:2], d_proj[:2],
+                        kdev[key], krefd)
+                flats.append(sol.transpose(1, 2).reshape(n_rhs, -1))
+                del Ar, br, sol
+        with span("eqlb.concat"):
+            flats.append(d_proj.new_zeros((n_rhs, 1)))
+            return torch.cat(flats, dim=1)
 
     def _combine_flat(self, flat):
         """Stage 4: global accumulation (n_rhs, total + 1) ->
@@ -688,6 +713,7 @@ class EqlbEngine:
         inverses are built through this routine, so the per-call path
         inherits their accuracy."""
         if self.solver == "torch":
+            annotate(route="linalg")
             x = torch.linalg.solve(A.permute(2, 0, 1), b.permute(2, 0, 1))
             return x.permute(1, 2, 0).contiguous()
         if self.solver == "kernel_mixed" and A.dtype == torch.float64:
@@ -727,6 +753,7 @@ class EqlbEngine:
         ``torch.linalg.solve``, as in the reference."""
         if self.solver == "kernel" and k3_admits(A.shape[-1], b.shape[-1]):
             return batched_kkt_solve(A, b)
+        annotate(route="linalg")
         return torch.linalg.solve(A, b)
 
     def kkt_size(self, key) -> tuple[int, int]:
@@ -807,7 +834,8 @@ class EqlbEngine:
         D, nflux = self.kkt_size(key)
         P = dv["J"].shape[0]
         n_rhs = d_proj.shape[0]
-        Mc, Bc, Fv, Fq = self._element_data(d_proj, d_rhs, dv, refd)
+        with span("kkt.element_data"):
+            Mc, Bc, Fv, Fq = self._element_data(d_proj, d_rhs, dv, refd)
 
         A = Mc.new_zeros((P, D * D))
         bvec = Mc.new_zeros((n_rhs, P, D))

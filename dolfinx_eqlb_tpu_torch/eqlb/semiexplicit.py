@@ -30,6 +30,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate, span
+
 __all__ = [
     "se_static",
     "se_host_tables",
@@ -416,34 +418,42 @@ def solve_bucket_semiexplicit(engine, key, dprT, facet_kind, bvals, dv, refd):
     X = n_rhs * P
     Dz = st["Dz"]
 
-    Fv, Fq = load_moments_bl(dprT, dv, refd)
-    if b.is_boundary:
-        ess, hatvals = boundary_ess_bl(engine, facet_kind, bvals, dv, refd)
-    else:
-        ess = hatvals = None
-    sp = particular_bl(engine, key, Fq, ess, hatvals, dv)  # (nflux, X)
+    with span("se.bucket", key=key, P=P, boundary=b.is_boundary, Dz=Dz):
+        with span("se.load_moments"):
+            Fv, Fq = load_moments_bl(dprT, dv, refd)
+        with span("se.explicit"):
+            if b.is_boundary:
+                ess, hatvals = boundary_ess_bl(engine, facet_kind, bvals, dv,
+                                               refd)
+            else:
+                ess = hatvals = None
+            sp = particular_bl(engine, key, Fq, ess, hatvals, dv)  # (nflux, X)
 
-    sp_can = sp[dv["patch_idx"]].view(n, nkeep, n_rhs, P)
-    msp = torch.einsum("cibp,cbrp->cirp", Mc, sp_can).reshape(n, nkeep, X)
-    _, bz = reduced_system_bl(engine, key, Mc, dv, resid=Fv - msp,
-                              matrix=False)
+        with span("se.reduced_rhs"):
+            sp_can = sp[dv["patch_idx"]].view(n, nkeep, n_rhs, P)
+            msp = torch.einsum("cibp,cbrp->cirp", Mc, sp_can).reshape(
+                n, nkeep, X)
+            _, bz = reduced_system_bl(engine, key, Mc, dv, resid=Fv - msp,
+                                      matrix=False)
 
-    if b.is_boundary:
-        free = z_mask_x(engine, key, ess)  # (Dz, X)
-        ff = free[:, None] & free[None, :]  # (Dz, Dz, X)
-        eye = torch.eye(Dz, dtype=Mc.dtype, device=Mc.device)
-        Ar = torch.where(ff, _bx(dv["Az_bl"], n_rhs), 0.0) \
-            + eye[:, :, None] * (~free[None])
-        br = torch.where(free, bz, 0.0)
-        y = engine._dense_solve_bl(Ar, br[:, None, :])[:, 0]  # (Dz, X)
-    else:
-        # geometry-only system with a cached explicit inverse
-        y = torch.einsum("dep,erp->drp", dv["Ainv_bl"],
-                         bz.view(Dz, n_rhs, P)).reshape(Dz, X)
+        with span("se.reduced_solve"):
+            if b.is_boundary:
+                free = z_mask_x(engine, key, ess)  # (Dz, X)
+                ff = free[:, None] & free[None, :]  # (Dz, Dz, X)
+                eye = torch.eye(Dz, dtype=Mc.dtype, device=Mc.device)
+                Ar = torch.where(ff, _bx(dv["Az_bl"], n_rhs), 0.0) \
+                    + eye[:, :, None] * (~free[None])
+                br = torch.where(free, bz, 0.0)
+                y = engine._dense_solve_bl(Ar, br[:, None, :])[:, 0]  # (Dz, X)
+            else:
+                # geometry-only system with a cached explicit inverse
+                annotate(route="inverse")
+                y = torch.einsum("dep,erp->drp", dv["Ainv_bl"],
+                                 bz.view(Dz, n_rhs, P)).reshape(Dz, X)
 
-    sol = sp
-    if Dz > 1:
-        sol.index_add_(0, dv["sel"], y[1:])
-    sol[0: ns * k: k] += y[0][None] * _bx(dv["cumalpha_bl"], n_rhs)
-    # unfold X -> (n_rhs, nflux, P)
-    return sol.view(-1, n_rhs, P).permute(1, 0, 2)
+            sol = sp
+            if Dz > 1:
+                sol.index_add_(0, dv["sel"], y[1:])
+            sol[0: ns * k: k] += y[0][None] * _bx(dv["cumalpha_bl"], n_rhs)
+        # unfold X -> (n_rhs, nflux, P)
+        return sol.view(-1, n_rhs, P).permute(1, 0, 2)

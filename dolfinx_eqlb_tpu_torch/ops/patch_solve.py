@@ -49,6 +49,7 @@ import ctypes
 
 import torch
 
+from ..utils import profiling
 from . import _build
 
 __all__ = ["batched_kkt_solve_bl", "batched_kkt_solve_bl_plain", "k1_plan",
@@ -296,6 +297,7 @@ def _solve_route_bl(A: torch.Tensor, b: torch.Tensor, route: str | None,
     elif route == "block" and not k1_block_fits(D, R, A.dtype):
         raise ValueError(f"K1 route 'block' does not take D={D}, R={R} in "
                          f"{A.dtype}")
+    profiling.annotate(route=route)
     if A.device.type == "cpu":
         return batched_kkt_solve_bl_plain(A, b)
     if A.device.type != "cuda":
@@ -425,6 +427,7 @@ def _solve_route(A: torch.Tensor, b: torch.Tensor,
     elif not (_shared_fits(D, R, A.dtype) if route == "shared"
               else _tile_covers(route, D, R)):
         raise ValueError(f"K3 route {route!r} does not take D={D}, R={R}")
+    profiling.annotate(route=route)
     if A.device.type == "cpu":
         return batched_kkt_solve_plain(A, b)
     if A.device.type != "cuda":

@@ -232,15 +232,37 @@ def test_timed_records_seconds(capsys):
 
 
 def test_trace_writes_chrome_trace(tmp_path):
+    """The trace holds the profiler's events and the program's spans: one
+    tiny engine call's ``eqlb.call`` on the trace's time base, around the
+    operators the call ran."""
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
     from dolfinx_eqlb_tpu_torch.utils import trace
 
+    msh = tgen.unit_square(2)
+    eng = EqlbEngine(tfem.FunctionSpace(msh, "RT", 1),
+                     tpatches.build_patches(msh), dtype=torch.float64,
+                     device="cpu")
+    nc, nf = msh.num_cells, msh.num_facets
+    inputs = (torch.ones(1, nc, 2, 1, dtype=torch.float64),
+              torch.ones(1, nc, 1, dtype=torch.float64),
+              np.zeros((1, nf), dtype=np.int8), np.zeros((1, nf, 1)))
+    eng.equilibrate(*inputs)
     with trace(str(tmp_path / "tr")) as prof:
         (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+        eng.equilibrate(*inputs)
     assert prof.chrome_trace == str(tmp_path / "tr" / "trace.json")
     events = json.loads((tmp_path / "tr" / "trace.json").read_text())
     assert events["traceEvents"]
     names = {e.key for e in prof.key_averages()}
     assert any("mm" in name for name in names)
+    calls = [e for e in events["traceEvents"] if e.get("name") == "eqlb.call"]
+    assert len(calls) == 1 and calls[0]["ph"] == "X"
+    assert calls[0]["args"]["buckets"] == len(eng.buckets)
+    t0, t1 = calls[0]["ts"], calls[0]["ts"] + calls[0]["dur"]
+    inside = [e for e in events["traceEvents"]
+              if e.get("cat") == "cpu_op" and t0 <= e["ts"] <= t1]
+    assert any(e["name"] == "aten::cat" for e in inside)
+    assert {r.name for r in prof.spans} >= {"eqlb.call", "se.bucket"}
 
 
 # --- patch builder reference walk --------------------------------------------
