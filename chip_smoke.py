@@ -255,6 +255,9 @@ K5_REPLACES = "none (dolfinx_eqlb_tpu/eqlb/semiexplicit.py:267, plain jnp)"
 CHUNK = 131072
 # max_patches_per_bucket of the mixed-precision path, bench.py --mixed
 CHUNK_MIXED = 65536
+# the boundary data's host-to-device bytes a call may take at 1M cells
+# (the main path uploads the boundary facets' rows only: 2,000 at n = 500)
+INPUT_BYTES_LIMIT = 64 * 1024
 # H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, and the card's peak
 # FLOP/s for each type: f32 outside the tensor cores (TF32 would round the
 # operands), f64 on the tensor cores (DMMA), the f64 peak a solve could
@@ -827,6 +830,17 @@ def phase_main(engine, data, device, profile=False):
     res["k1_launches_by_route"] = dict(
         kernel_wrappers()["K1"].launches_by_route)
     res.update(timing)
+    # one more call on the boundary data's host arrays, as ``_solve`` hands
+    # them: only the boundary facets' rows go up, and the output is the
+    # device-tensor call's bit for bit
+    uploads = engine.input_uploads
+    x_host = engine.equilibrate(dpT, drT, facet_kind, bvals,
+                                transposed_inputs=True)
+    sync(device)
+    res["input_bytes"] = engine.input_bytes
+    res["input_uploads"] = engine.input_uploads - uploads
+    res["host_bc_bitwise"] = bool(torch.equal(x_host, x))
+    del x_host
     res["calls"] = (1 + len(timing["strict_ms"])
                     + 8 * len(timing["pipelined_ms"]))
     res["chunks"] = len(engine.buckets)
@@ -3779,21 +3793,25 @@ def report_sharding(r: dict, nph: int, failures: list) -> None:
 
 # phase 23: the port's bench by mode: its arguments after n (None: n is
 # fixed in the arguments) and the launches a timed call makes, K1 by route
-# (routes absent: none)
+# (routes absent: none); the bench hands the engine its boundary data as
+# device tensors, so nothing is uploaded
+BENCH_NO_UPLOAD = {"input_uploads": 0, "input_bytes": 0}
 BENCH_MODES = {
     # K5 once a chunk: 6 chunks at n = 500 (chunk 131072), 10 at the mixed
     # chunk (65536), 6 on the Biot mesh
     "default": ([], {"K1": {"tile": 2}, "K2": 1, "K3": 0, "K4": 0, "K5": 6,
-                     "pivoted_solves": 0}),
+                     "pivoted_solves": 0, **BENCH_NO_UPLOAD}),
     "stress": (["--stress"], {"K1": {"tile": 2}, "K2": 1, "K3": 0, "K4": 0,
-                              "K5": 6, "pivoted_solves": 2}),
+                              "K5": 6, "pivoted_solves": 2,
+                              **BENCH_NO_UPLOAD}),
     # the f32 factorisation and its one f64 correction per boundary chunk
     "mixed": (["--mixed"], {"K1": {"tile": 4}, "K2": 0, "K3": 0, "K4": 1,
-                            "K5": 10, "pivoted_solves": 0}),
+                            "K5": 10, "pivoted_solves": 0,
+                            **BENCH_NO_UPLOAD}),
     # 65,536 cells (phase 19 runs the 1,048,576-cell headline): three
     # boundary patch shapes on the refined hierarchy, three masked solves
     "biot": (None, {"K1": {"tile": 3}, "K2": 1, "K3": 0, "K4": 0, "K5": 6,
-                    "pivoted_solves": 0}),
+                    "pivoted_solves": 0, **BENCH_NO_UPLOAD}),
 }
 BENCH_BIOT = dict(n=128, n_fields=3, biot=True)
 BENCH_BIOT_ARGS = ["128", "3", "--biot"]
@@ -4213,7 +4231,10 @@ def main(argv=None) -> int:
             main_res["inverse_build_ms_by_route"].items()) + "); "
         f"finite {main_res['finite']}; max|x - plain| "
         f"{main_res['max_abs_err_vs_plain']:.3e} (limit "
-        f"{main_res['err_limit']:.3e})")
+        f"{main_res['err_limit']:.3e}); host boundary data "
+        f"{main_res['input_bytes']} B in {main_res['input_uploads']} uploads "
+        f"a call (limit {INPUT_BYTES_LIMIT}), output bitwise "
+        f"{main_res['host_bc_bitwise']}")
     log("    detail: " + json.dumps(
         {key: val for key, val in main_res.items() if key != "profile_table"}))
     if "profile_table" in main_res:
@@ -4234,6 +4255,14 @@ def main(argv=None) -> int:
         failures.append("main path output has a wrong shape or non-finite")
     if not main_res["max_abs_err_vs_plain"] <= main_res["err_limit"]:
         failures.append("main path disagrees with the plain route")
+    if not (0 < main_res["input_bytes"] <= INPUT_BYTES_LIMIT
+            and main_res["input_uploads"] == 2
+            and main_res["host_bc_bitwise"]):
+        failures.append(
+            f"main path: host boundary data {main_res['input_bytes']} B in "
+            f"{main_res['input_uploads']} uploads (limit "
+            f"{INPUT_BYTES_LIMIT} B in 2), bitwise "
+            f"{main_res['host_bc_bitwise']}")
     del x, engine
     torch.cuda.empty_cache()
 

@@ -203,14 +203,17 @@ def _counts(engine) -> dict:
     return {"K1": dict(batched_kkt_solve_bl.launches_by_route),
             "K2": combine_gather.launches, "K3": batched_kkt_solve.launches,
             "K4": ds_combine_gather.launches, "K5": load_moments.launches,
-            "pivoted_solves": engine.pivoted_solves}
+            "pivoted_solves": engine.pivoted_solves,
+            "input_uploads": engine.input_uploads}
 
 
 def _timed(call, engine, device, rounds, per_round):
     """``rounds`` rounds of ``per_round`` calls in flight, a sync closing
     each round (host clock): the last output, ms per call of each round,
-    launches per call (K1 by route, K2, K3, K4, K5, pivoted solves) and
-    the peak device memory in GiB (None on the CPU)."""
+    launches per call (K1 by route, K2, K3, K4, K5, pivoted solves, the
+    boundary data's host-to-device uploads, and the last call's bytes of
+    them, ``input_bytes``) and the peak device memory in GiB (None on the
+    CPU)."""
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     before = _counts(engine)
@@ -225,8 +228,9 @@ def _timed(call, engine, device, rounds, per_round):
     calls = rounds * per_round
     launches = {"K1": {rt: (n - before["K1"][rt]) / calls
                        for rt, n in after["K1"].items()}}
-    for name in ("K2", "K3", "K4", "K5", "pivoted_solves"):
+    for name in ("K2", "K3", "K4", "K5", "pivoted_solves", "input_uploads"):
         launches[name] = (after[name] - before[name]) / calls
+    launches["input_bytes"] = engine.input_bytes
     peak = (torch.cuda.max_memory_allocated(device) / 2**30
             if device.type == "cuda" else None)
     return x, samples, launches, peak

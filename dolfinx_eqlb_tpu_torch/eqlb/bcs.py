@@ -66,7 +66,10 @@ class BoundaryData:
 
     facet_kind (n_rhs, nf) int8: 0 interior/outer, 1 flux-free (primal
     Dirichlet boundary), 2 flux-essential.  bvals (n_rhs, nf, k) holds the
-    Legendre facet dof values L_m(g) of the prescribed trace.
+    Legendre facet dof values L_m(g) of the prescribed trace.  Both are
+    full-width for indexing by facet id, but ``EqlbEngine.equilibrate``
+    reads (and from host arrays uploads) only the rows of the boundary
+    facets: interior rows are ignored, whatever they hold.
     """
 
     def __init__(self, mesh, degree: int, n_rhs: int):

@@ -48,9 +48,10 @@ out of the combine.
 
 Each call opens the spans of ``utils.profiling`` (recorded only inside a
 ``recording()`` block): ``eqlb.call`` (``mode``, ``n_rhs``, ``buckets``)
-over ``eqlb.input`` (the boundary data's upload, the inputs' cast and
-batch-last transpose), one ``se.bucket`` (``se.load_moments``,
-``se.explicit``, ``se.reduced_rhs``, ``se.reduced_solve``) or
+over ``eqlb.input`` (``rows``: the boundary facets whose boundary data
+is uploaded; the inputs' cast and batch-last transpose), one
+``se.bucket`` (``se.load_moments``, ``se.explicit``, ``se.reduced_rhs``,
+``se.reduced_solve``) or
 ``kkt.bucket`` (``kkt.assemble`` over ``kkt.element_data``, then
 ``kkt.solve``) a bucket, ``eqlb.concat`` and ``eqlb.combine``; a solve
 span carries the ``route`` it took.  The first call also builds the
@@ -327,6 +328,28 @@ class EqlbEngine:
         # system took the rank-1 regularisation in the last weak-symmetry
         # call (``stress.weak_symmetry_bucket_bl``)
         self.ws_sing = {}
+        self._boundary_rows(partial)
+        # bytes of the last call's boundary-data rows staged to the device
+        # from host arrays, and the uploads so far (``_bc_input``)
+        self.input_bytes = 0
+        self.input_uploads = 0
+
+    def _boundary_rows(self, partial=False):
+        """The facets whose boundary data any stage reads: the boundary
+        spokes of the boundary buckets (``bspokes``), sorted.  Every
+        boundary facet is one (each is a spoke of its two end vertices'
+        patches); with ``partial`` tables, those of the rows present."""
+        bsp = [t["bspokes"].ravel() for key, t in self.tables.items()
+               if self.buckets[key].is_boundary]
+        bf = np.unique(np.concatenate(bsp)) if bsp else np.zeros(0, np.int64)
+        want = self.mesh.boundary_facets
+        if not (np.isin(bf, want).all() if partial
+                else np.array_equal(bf, want)):
+            raise RuntimeError("boundary spokes are not the mesh's boundary "
+                               "facets")
+        self._bf = bf.astype(np.int64)
+        self._bf_dev = None
+        self._bc_buf = {}
 
     def _build_combine_table(self, partial=False):
         """Gather-based global accumulation: every global dof has at most 3
@@ -543,6 +566,41 @@ class EqlbEngine:
         return torch.as_tensor(np.asarray(a), dtype=dtype,
                                device=self.device)
 
+    def _stage(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> the engine's device without a host wait: on the
+        card through pinned memory, copied asynchronously (the caching
+        host allocator keeps the pinned block until the copy is done)."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _bc_input(self, name: str, a, dtype=None) -> torch.Tensor:
+        """``facet_kind`` or ``bvals`` (n_rhs, nf, ...) for the stages,
+        which read only the boundary facets' rows (``_bf``).  A tensor
+        goes through ``_input``.  Of a host array only those rows are
+        gathered, staged (``_stage``) and scattered into the engine's
+        buffer ``name`` of the full shape on the device, whose other rows
+        stay zero: the caller may change the array once the call returns.
+        Calls in flight share the buffer, so they must run on one stream,
+        which orders each call's scatter after the last call's reads."""
+        if isinstance(a, torch.Tensor):
+            return self._input(a, dtype)
+        a = np.asarray(a)
+        rows = np.ascontiguousarray(
+            a[:, self._bf], dtype=None if dtype is None else _NP_DTYPE[dtype])
+        if self._bf_dev is None:
+            self._bf_dev = self._stage(self._bf)
+        staged = self._stage(rows)
+        buf = self._bc_buf.get(name)
+        if buf is None or buf.shape != a.shape or buf.dtype != staged.dtype:
+            buf = torch.zeros(a.shape, dtype=staged.dtype, device=self.device)
+            self._bc_buf[name] = buf
+        buf.index_copy_(1, self._bf_dev, staged)
+        self.input_bytes += rows.nbytes
+        self.input_uploads += 1
+        return buf
+
     def equilibrate(self, sigma_proj_dofs, rhs_dofs, facet_kind, bvals,
                     weak_symmetry=False, fuse=None, transposed_inputs=False,
                     ws_skip_nodes=None):
@@ -551,15 +609,23 @@ class EqlbEngine:
 
         Inputs may be host arrays or tensors on the engine's device; NumPy
         dof data is transposed to the batch-last layout on the host
-        (``put_transposed``), tensors on their device.
+        (``put_transposed``), tensors on their device.  Of ``facet_kind``
+        and ``bvals`` only the boundary facets' rows are read; interior
+        rows are ignored, whatever they hold.  From host arrays only those
+        rows are uploaded (``input_bytes`` bytes, through pinned memory on
+        the card, with no wait for the device), into buffers the engine
+        owns: the caller may change the arrays as soon as the call returns.
 
         Args (leading axis = n_rhs):
           sigma_proj_dofs (n_rhs, nc, 2, ndg): vector-DG dofs of sigma_proj
           rhs_dofs        (n_rhs, nc, ndg):    DG dofs of the projected RHS
           facet_kind      (n_rhs, nf) int:     0 interior/outer, 1 flux-free
                                                (primal Dirichlet), 2 flux-
-                                               essential (Neumann data)
-          bvals           (n_rhs, nf, k):      facet dof values of the flux BC
+                                               essential (Neumann data);
+                                               read on boundary facets only
+          bvals           (n_rhs, nf, k):      facet dof values of the flux
+                                               BC; read on boundary facets
+                                               only
           weak_symmetry:  treat rows 0, 1 as stress rows and apply the
                           patch-wise weak-symmetry correction before the
                           combine (the reference's FluxEqlbSE stress path)
@@ -588,21 +654,10 @@ class EqlbEngine:
                 "path (mode='semiexplicit', fuse=True): the batch-major "
                 "fallback would silently mis-gather batch-last arrays")
         with span("eqlb.call", mode=self.mode, buckets=len(self.buckets)):
-            with span("eqlb.input"):
-                fk = self._input(facet_kind)
-                bv = self._input(bvals, self.dtype)
-                if self.mode == "kkt":
-                    dp = self._input(sigma_proj_dofs, self.dtype)
-                    dr = self._input(rhs_dofs, self.dtype)
-                elif transposed_inputs:
-                    dpT, drT = sigma_proj_dofs, rhs_dofs
-                elif isinstance(sigma_proj_dofs, torch.Tensor):
-                    dpT = self._input(sigma_proj_dofs, self.dtype).movedim(
-                        1, -1).contiguous()
-                    drT = self._input(rhs_dofs, self.dtype).movedim(
-                        1, -1).contiguous()
-                else:
-                    dpT, drT = self.put_transposed(sigma_proj_dofs, rhs_dofs)
+            with span("eqlb.input", rows=len(self._bf)):
+                dp, dr, fk, bv = self._inputs(sigma_proj_dofs, rhs_dofs,
+                                              facet_kind, bvals,
+                                              transposed_inputs)
             annotate(n_rhs=fk.shape[0])
             if weak_symmetry and fk.shape[0] < 2:
                 raise ValueError("weak symmetry needs two stress rows")
@@ -628,10 +683,31 @@ class EqlbEngine:
                 else:
                     if weak_symmetry:
                         self.ensure_stress_caches()
-                    flat = self._bucket_solutions(dpT, drT, fk, bv,
+                    flat = self._bucket_solutions(dp, dr, fk, bv,
                                                   weak_symmetry, ws_skip)
                 with span("eqlb.combine"):
                     return self._combine_flat(flat)
+
+    def _inputs(self, sigma_proj_dofs, rhs_dofs, facet_kind, bvals,
+                transposed_inputs=False):
+        """The call's inputs on the device, at the engine's dtype: the dof
+        data batch-major in the KKT mode, batch-last in the semi-explicit
+        mode, then ``facet_kind`` and ``bvals`` (``_bc_input``; their
+        bytes staged from the host in ``input_bytes``)."""
+        self.input_bytes = 0
+        fk = self._bc_input("facet_kind", facet_kind)
+        bv = self._bc_input("bvals", bvals, self.dtype)
+        if self.mode == "kkt":
+            return (self._input(sigma_proj_dofs, self.dtype),
+                    self._input(rhs_dofs, self.dtype), fk, bv)
+        if transposed_inputs:
+            return sigma_proj_dofs, rhs_dofs, fk, bv
+        if isinstance(sigma_proj_dofs, torch.Tensor):
+            return (self._input(sigma_proj_dofs, self.dtype).movedim(
+                        1, -1).contiguous(),
+                    self._input(rhs_dofs, self.dtype).movedim(
+                        1, -1).contiguous(), fk, bv)
+        return (*self.put_transposed(sigma_proj_dofs, rhs_dofs), fk, bv)
 
     def _check_options(self):
         for name, allowed in (("mode", _MODES), ("solver", _SOLVERS),
