@@ -198,17 +198,19 @@ Phases, one line each:
   25. the same at RT4 on ``unit_square_unstructured(ceil(n / sqrt(2)))``
       (354 at n = 500: 250,636 cells, 126,027 patches), chunk 32768: D =
       130, 156, 182 and 208 for most, on K3's cluster route;
-  26. K5 (the semi-explicit load moments) alone at the shapes of the
-      benchmark's semi-explicit cells: the engine on ``unit_square(n)``,
-      RT2, chunk ``CHUNK``, in f32 (the main path's precision) and f64
-      (the cells'), one field and three folded into the lane axis; on
-      each chunk the kernel's and the plain one-hot einsums' times on the
-      same operands, the byte bound and the error against the plain
-      version (1e-6 relative in f32, 1e-13 in f64); then one f64
-      ``equilibrate``'s K5 launches (one a chunk) and its
-      ``se.load_moments`` spans' route.  Every semi-explicit path above
-      counts K5 among its launches (phase 6 exactly one a chunk a call),
-      every KKT path none.
+  26. K5 (the semi-explicit load moments) and K6 (the reduced step)
+      alone at the shapes of the benchmark's semi-explicit cells: the
+      engine on ``unit_square(n)``, RT2, chunk ``CHUNK``, in f32 (the main
+      path's precision) and f64 (the cells'), one field and three folded
+      into the lane axis; on each chunk each kernel's and its plain
+      einsums' times on the same operands (K6's: K5's moments and the
+      explicit step's particular solution), the byte bound and the error
+      against the plain version (1e-6 relative in f32, 1e-13 in f64);
+      then one f64 ``equilibrate``'s K5 and K6 launches (one a chunk, K6's
+      split by epilogue into the interior chunks' "inverse" and the
+      boundary chunks' "rhs") and its spans' routes.  Every semi-explicit
+      path above counts K5 and K6 among its launches (phase 6 exactly one
+      a chunk a call), every KKT path none.
 
 Kernel times are CUDA-event means of single launches, each after a write
 of 256 MB that leaves the 50 MB L2 cold.  ``--k1-sweep`` only builds the
@@ -249,6 +251,12 @@ K4_REPLACES = "dolfinx_eqlb_tpu/ops/lane_select.py:90"
 K5_SOURCE = "dolfinx_eqlb_tpu_torch/csrc/load_moments.cu"
 # no TPU kernel: the JAX package's load moments are plain jnp
 K5_REPLACES = "none (dolfinx_eqlb_tpu/eqlb/semiexplicit.py:267, plain jnp)"
+K6_SOURCE = "dolfinx_eqlb_tpu_torch/csrc/reduced_step.cu"
+# no TPU kernel: the reduced right-hand side and the inverse product are
+# plain jnp there too
+K6_REPLACES = ("none (dolfinx_eqlb_tpu/eqlb/semiexplicit.py "
+               "reduced_system_bl and the interior inverse product, "
+               "plain jnp)")
 # max_patches_per_bucket of the main and KKT paths: the chunk size
 # bench.py's headline configuration uses; it fixes the K1 and K3 shapes
 # checked in phases 4 and 8
@@ -382,17 +390,19 @@ def kernel_wrappers() -> dict:
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
         batched_kkt_solve, batched_kkt_solve_bl,
     )
+    from dolfinx_eqlb_tpu_torch.ops.reduced_step import reduced_step
 
     return {"K1": batched_kkt_solve_bl, "K2": combine_gather,
             "K3": batched_kkt_solve, "K4": ds_combine_gather,
-            "K5": load_moments}
+            "K5": load_moments, "K6": reduced_step}
 
 
 def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "launches_by_route"):
-            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+        for split in ("launches_by_route", "launches_by_epilogue"):
+            if hasattr(fn, split):
+                setattr(fn, split, dict.fromkeys(getattr(fn, split), 0))
 
 
 def read_launches() -> dict:
@@ -829,6 +839,8 @@ def phase_main(engine, data, device, profile=False):
     res["launches"] = read_launches()
     res["k1_launches_by_route"] = dict(
         kernel_wrappers()["K1"].launches_by_route)
+    res["k6_launches_by_epilogue"] = dict(
+        kernel_wrappers()["K6"].launches_by_epilogue)
     res.update(timing)
     # one more call on the boundary data's host arrays, as ``_solve`` hands
     # them: only the boundary facets' rows go up, and the output is the
@@ -845,6 +857,9 @@ def phase_main(engine, data, device, profile=False):
                     + 8 * len(timing["pipelined_ms"]))
     res["chunks"] = len(engine.buckets)
     res["k5_launches_per_call"] = res["launches"]["K5"] / res["calls"]
+    res["k6_launches_per_call"] = res["launches"]["K6"] / res["calls"]
+    res["interior_chunks"] = sum(not b.is_boundary
+                                 for b in engine.buckets.values())
     res["inverse_build_ms"] = inverse_build_ms(engine, device)
     res["inverse_build_ms_by_route"] = {
         rt: inverse_build_ms(engine, device, rt)
@@ -1341,7 +1356,7 @@ def report_kkt(kkt: dict, label: str, shapes, nph: int, failures: list,
             failures.append(f"KKT path {label} {dt} disagrees with the "
                             f"plain route")
         if (r["launches"]["K3"] <= 0 or r["launches"]["K2"] <= 0
-                or r["launches"]["K5"]):
+                or r["launches"]["K5"] or r["launches"]["K6"]):
             failures.append(f"KKT path {label} {dt} skipped a kernel: "
                             f"{r['launches']}")
         planned = {k3_plan(D, R, getattr(torch, dt)) for D, R, _ in shapes}
@@ -1702,7 +1717,8 @@ def report_flux_api(api: dict, nph: int, failures: list) -> None:
         for name in ("SE", "EV"):
             if (r["launches"][name]["K1"] <= 0
                     or r["launches"][name]["K2"] <= 0
-                    or r["launches"][name]["K5"] <= 0):
+                    or r["launches"][name]["K5"] <= 0
+                    or r["launches"][name]["K6"] <= 0):
                 failures.append(f"flux user API {bc} {name} skipped a "
                                 f"kernel: {r['launches'][name]}")
             check_k1_routes(f"flux user API {bc} {name}",
@@ -1968,7 +1984,8 @@ def report_lshape(ls: dict, nph: int, failures: list) -> None:
         if not r["final_eta"] <= r["tol"]:
             failures.append(f"L-shape {name} did not reach eta <= "
                             f"{r['tol']:g} in {r['max_iter']} iterations")
-        if min(r["launches"][kn] for kn in ("K1", "K2", "K5")) <= 0:
+        if min(r["launches"][kn] for kn in
+               ("K1", "K2", "K5", "K6")) <= 0:
             failures.append(f"L-shape {name} skipped a kernel: "
                             f"{r['launches']}")
         check_k1_routes(f"L-shape {name}", r["k1_launches_by_route"],
@@ -2066,7 +2083,8 @@ def report_uniform(un: dict, nph: int, failures: list) -> None:
             failures.append(f"uniform series SE disagrees with {CONV_CSV}")
         if not all(np.isfinite(r["rows"]).ravel()):
             failures.append(f"uniform series {name}: a value is not finite")
-        if min(r["launches"][kn] for kn in ("K1", "K2", "K5")) <= 0:
+        if min(r["launches"][kn] for kn in
+               ("K1", "K2", "K5", "K6")) <= 0:
             failures.append(f"uniform series {name} skipped a kernel: "
                             f"{r['launches']}")
     kel = un["kellogg"]
@@ -2079,7 +2097,7 @@ def report_uniform(un: dict, nph: int, failures: list) -> None:
         f"{kel['eta_rel_cpu']:.3e} (limit 1e-9)")
     if not (kel["cells_match_cpu"] and kel["eta_rel_cpu"] <= 1e-9):
         failures.append("Kellogg loop: card and CPU disagree")
-    if min(kel["launches"][kn] for kn in ("K1", "K2", "K5")) <= 0:
+    if min(kel["launches"][kn] for kn in ("K1", "K2", "K5", "K6")) <= 0:
         failures.append(f"Kellogg loop skipped a kernel: {kel['launches']}")
 
 
@@ -2325,7 +2343,7 @@ def report_stress(r: dict, nph: int, failures: list) -> None:
     log("    detail: " + json.dumps(
         {key: val for key, val in r.items()
          if key != "kernel_checks"}))
-    if min(r["launches"][kn] for kn in ("K1", "K2", "K5")) <= 0:
+    if min(r["launches"][kn] for kn in ("K1", "K2", "K5", "K6")) <= 0:
         failures.append(f"stress path skipped a kernel: {r['launches']}")
     check_k1_routes("stress path", r["k1_launches_by_route"],
                     r["k1_shapes"], torch.float32, failures)
@@ -2440,7 +2458,7 @@ def report_elasticity(r: dict, nph: int, failures: list) -> None:
         {key: val for key, val in r.items() if key != "kernel_checks"}))
     if r.get("failed") or not r["checks"] or not all(r["checks"].values()):
         failures.append(f"elasticity flow: a check failed: {r['checks']}")
-    if min(r["launches"][kn] for kn in ("K1", "K2", "K5")) <= 0:
+    if min(r["launches"][kn] for kn in ("K1", "K2", "K5", "K6")) <= 0:
         failures.append(f"elasticity flow skipped a kernel: "
                         f"{r['launches']}")
     if "k1_shapes" in r:
@@ -2693,7 +2711,7 @@ def report_stress_kkt(r: dict, nph: int, failures: list) -> None:
         failures.append("KKT-mode stress disagrees with the semi-explicit "
                         "mode")
     if (r["launches"]["K3"] <= 0 or r["launches"]["K2"] <= 0
-            or r["launches"]["K5"]):
+            or r["launches"]["K5"] or r["launches"]["K6"]):
         failures.append(f"KKT-mode stress skipped a kernel: {r['launches']}")
     if not r["k3_checks"] or not all(c["ok"] for c in r["k3_checks"]):
         failures.append("KKT-mode stress: K3 disagrees with its plain "
@@ -2840,7 +2858,8 @@ def report_cook(r: dict, nph: int, failures: list) -> None:
                    if s["regularised"] == 0):
             failures.append(f"Cook loop {name}: weak symmetry fails on a "
                             "step without regularised patches")
-        if min(r[name]["launches"][kn] for kn in ("K1", "K2", "K5")) <= 0:
+        if min(r[name]["launches"][kn] for kn in
+               ("K1", "K2", "K5", "K6")) <= 0:
             failures.append(f"Cook loop {name} skipped a kernel: "
                             f"{r[name]['launches']}")
     if not all(np.isfinite(row[1]) for row in d["rows"]):
@@ -3073,7 +3092,8 @@ def report_biot_bench(r: dict, nph: int, failures: list) -> None:
                 f"{k['dtype']} D={k['D']} R={k['R']} X={k['X']} max_rel_err "
                 f"{k['max_rel_err']:.3e}" for k in kc["K1"])
             + f"; K2 bitwise {kc['K2']['bitwise']}")
-        if min(c["launches"][kn] for kn in ("K1", "K2", "K5")) <= 0:
+        if min(c["launches"][kn] for kn in
+               ("K1", "K2", "K5", "K6")) <= 0:
             failures.append(f"Biot bench {name}: a kernel was skipped: "
                             f"{c['launches']}")
         check_k1_routes(f"Biot bench {name}", c["k1_launches_by_route"],
@@ -3168,7 +3188,7 @@ def report_biot_flow(r: dict, nph: int, failures: list) -> None:
         failures.append(f"Biot flow: a check failed: {r['checks']}")
     if not r["iterations"] < r["maxiter"]:
         failures.append("Biot flow: MINRES did not converge")
-    if min(r["launches"][kn] for kn in ("K1", "K2", "K5")) <= 0:
+    if min(r["launches"][kn] for kn in ("K1", "K2", "K5", "K6")) <= 0:
         failures.append(f"Biot flow skipped a kernel: {r['launches']}")
     check_k1_routes("Biot flow", r["k1_launches_by_route"], r["k1_shapes"],
                     torch.float64, failures)
@@ -3724,7 +3744,8 @@ def report_sharding(r: dict, nph: int, failures: list) -> None:
             if not k1_ok:
                 failures.append(f"phase 22 dryrun {name}: K1 or K2 "
                                 "disagrees with its plain version")
-            if any(min(rk["launches"][kn] for kn in ("K1", "K2", "K5"))
+            if any(min(rk["launches"][kn]
+                       for kn in ("K1", "K2", "K5", "K6"))
                    <= 0 for rk in c["ranks"]):
                 failures.append(f"phase 22 dryrun {name}: a rank skipped a "
                                 "kernel")
@@ -3748,7 +3769,8 @@ def report_sharding(r: dict, nph: int, failures: list) -> None:
                 f"over {rk['calls']} calls, K1 by route "
                 f"{rk['k1_launches_by_route']}; peak "
                 f"{rk['peak_mem_gib']:.2f} GiB")
-            if min(rk["launches"][kn] for kn in ("K1", "K2", "K5")) <= 0:
+            if min(rk["launches"][kn] for kn in
+                   ("K1", "K2", "K5", "K6")) <= 0:
                 failures.append("phase 22 full width: a rank skipped a "
                                 "kernel")
         kc = f["kernel_checks"]
@@ -3797,21 +3819,21 @@ def report_sharding(r: dict, nph: int, failures: list) -> None:
 # device tensors, so nothing is uploaded
 BENCH_NO_UPLOAD = {"input_uploads": 0, "input_bytes": 0}
 BENCH_MODES = {
-    # K5 once a chunk: 6 chunks at n = 500 (chunk 131072), 10 at the mixed
-    # chunk (65536), 6 on the Biot mesh
+    # K5 and K6 once a chunk: 6 chunks at n = 500 (chunk 131072), 10 at the
+    # mixed chunk (65536), 6 on the Biot mesh
     "default": ([], {"K1": {"tile": 2}, "K2": 1, "K3": 0, "K4": 0, "K5": 6,
-                     "pivoted_solves": 0, **BENCH_NO_UPLOAD}),
+                     "K6": 6, "pivoted_solves": 0, **BENCH_NO_UPLOAD}),
     "stress": (["--stress"], {"K1": {"tile": 2}, "K2": 1, "K3": 0, "K4": 0,
-                              "K5": 6, "pivoted_solves": 2,
+                              "K5": 6, "K6": 6, "pivoted_solves": 2,
                               **BENCH_NO_UPLOAD}),
     # the f32 factorisation and its one f64 correction per boundary chunk
     "mixed": (["--mixed"], {"K1": {"tile": 4}, "K2": 0, "K3": 0, "K4": 1,
-                            "K5": 10, "pivoted_solves": 0,
+                            "K5": 10, "K6": 10, "pivoted_solves": 0,
                             **BENCH_NO_UPLOAD}),
     # 65,536 cells (phase 19 runs the 1,048,576-cell headline): three
     # boundary patch shapes on the refined hierarchy, three masked solves
     "biot": (None, {"K1": {"tile": 3}, "K2": 1, "K3": 0, "K4": 0, "K5": 6,
-                    "pivoted_solves": 0, **BENCH_NO_UPLOAD}),
+                    "K6": 6, "pivoted_solves": 0, **BENCH_NO_UPLOAD}),
 }
 BENCH_BIOT = dict(n=128, n_fields=3, biot=True)
 BENCH_BIOT_ARGS = ["128", "3", "--biot"]
@@ -3867,14 +3889,14 @@ def bench_problems(run: dict, expected: dict, card: str, mixed: bool) -> list:
 def bench_launch_totals(run: dict) -> dict:
     """Each kernel's launches over a bench run's timed calls (per call
     times the calls of each line)."""
-    tot = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    tot = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
     for line in run["lines"]:
         calls = (8 * len(line["pipelined_samples_ms"])
                  if "pipelined_ms" in line
                  else len(line["latency_samples_ms"]))
         per = line["launches"]
         tot["K1"] += round(sum(per["K1"].values()) * calls)
-        for kname in ("K2", "K3", "K4", "K5"):
+        for kname in ("K2", "K3", "K4", "K5", "K6"):
             tot[kname] += round(per[kname] * calls)
     return tot
 
@@ -3896,13 +3918,35 @@ def load_moments_work(k: int, n: int, P: int, n_rhs: int, ncells: int,
     return geometry + gathered + outputs + refs, ops * n * n_rhs * P
 
 
+def reduced_step_work(n: int, ns: int, nflux: int, Dz: int, P: int,
+                      n_rhs: int, size: int,
+                      interior: bool, k: int = 2) -> tuple[int, int]:
+    """(bytes, operations) K6 needs for a bucket of n cells and ns spokes a
+    patch and P patches: Mc, cumalpha and (interior) the inverse once a
+    patch, Fv and sp's nflux rows once a lane, the written rows once
+    (interior: the Dz - 1 unit columns' and the ns d0 rows of sp; boundary:
+    b_z), the index tables."""
+    nkeep = k * (k + 1)
+    nu = 2 * (k - 1) + (k - 1) * (k - 2) // 2
+    X = n_rhs * P
+    per_patch = n * nkeep * nkeep + ns + (Dz * Dz if interior else 0)
+    per_lane = n * nkeep + nflux + ((Dz - 1 + ns) if interior else Dz)
+    tables = 8 * (n * (nkeep + nu + 1) + Dz - 1)
+    # per lane: the residual's multiply-adds, the d0 column, E's ones;
+    # interior: the inverse product and the scatter
+    ops = n * (2 * nkeep * nkeep + 4 + nu)
+    if interior:
+        ops += 2 * Dz * Dz + 2 * ns + Dz - 1
+    return (per_patch * P + per_lane * X) * size + tables, ops * X
+
+
 def phase_load_moments(n: int, device, timer) -> dict:
-    """Phase 26: K5 alone on each chunk of the benchmark's semi-explicit
-    engine (RT2, ``unit_square(n)``, chunk ``CHUNK``) in f64, the cells'
-    precision, and in f32, the main path's, each with one field and with
-    three folded into the lane axis, beside the plain one-hot einsums;
-    then one f64 ``equilibrate``'s launches (reset to 0 before it) and the
-    route its spans record."""
+    """Phase 26: K5, then K6 on its real operands, alone on each chunk of
+    the benchmark's semi-explicit engine (RT2, ``unit_square(n)``, chunk
+    ``CHUNK``) in f64, the cells' precision, and in f32, the main path's,
+    each with one field and with three folded into the lane axis, beside
+    their plain einsum versions; then one f64 ``equilibrate``'s launches
+    (reset to 0 before it) and the routes its spans record."""
     from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
     from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
     from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
@@ -3915,7 +3959,7 @@ def phase_load_moments(n: int, device, timer) -> dict:
     k = 2
     msh = unit_square(n)
     buckets = build_patches(msh)
-    rows = []
+    rows, k6_rows = [], []
     for dt, np_dt, tol in ((torch.float32, np.float32, 1e-6),
                            (torch.float64, np.float64, 1e-13)):
         eng = EqlbEngine(FunctionSpace(msh, "RT", k), buckets, dtype=dt,
@@ -3926,6 +3970,8 @@ def phase_load_moments(n: int, device, timer) -> dict:
                                               np_dtype=np_dt)
             dpT, drT = eng.put_transposed(d_proj, d_rhs)
             dprT = torch.cat([dpT, drT[:, None]], dim=1)
+            fkt = torch.as_tensor(fk, device=device)
+            bvt = torch.as_tensor(bv, dtype=dt, device=device)
             for key in sorted(eng.buckets):
                 dv = dev[key]
                 args = (dprT, *(dv[name] for name in (
@@ -3953,6 +3999,8 @@ def phase_load_moments(n: int, device, timer) -> dict:
                              "bound_by": bound_by, "of_bound": ms / bound_ms,
                              "max_rel_err": err, "limit": tol,
                              "ok": err <= tol})
+                k6_rows.append(reduced_step_row(
+                    eng, key, dv, refd, dprT, fkt, bvt, n_rhs, tol, timer))
             del dpT, drT, dprT
         if dt == torch.float64:
             d_proj, d_rhs, fk, bv = make_data(msh, k, 1, seed=26,
@@ -3967,11 +4015,67 @@ def phase_load_moments(n: int, device, timer) -> dict:
             launches = read_launches()["K5"]
             routes = sorted({str(r.attrs.get("route")) for r in recs
                              if r.name == "se.load_moments"})
+            k6 = kernel_wrappers()["K6"]
+            k6_call = {"launches": k6.launches,
+                       "by_epilogue": dict(k6.launches_by_epilogue),
+                       "interior_chunks": sum(
+                           not b.is_boundary for b in eng.buckets.values()),
+                       "rhs_routes": sorted({
+                           str(r.attrs.get("route")) for r in recs
+                           if r.name == "se.reduced_rhs"}),
+                       "solve_routes": [
+                           str(r.attrs.get("route")) for r in recs
+                           if r.name == "se.reduced_solve"]}
             chunks = len(eng.buckets)
         del eng, dev, refd
         torch.cuda.empty_cache()
     return {"rows": rows, "chunks": chunks, "launches_per_call": launches,
-            "routes": routes}
+            "routes": routes, "k6_rows": k6_rows, "k6_call": k6_call}
+
+
+def reduced_step_row(eng, key, dv, refd, dprT, fk, bv, n_rhs, tol,
+                     timer) -> dict:
+    """K6 on one chunk's own operands (K5's moments and the explicit
+    step's sp, as ``solve_bucket_semiexplicit`` builds them): the kernel
+    against the plain einsum chain (on copies of sp: the interior epilogue
+    writes into it), both timed, and the byte bound."""
+    from dolfinx_eqlb_tpu_torch.eqlb.semiexplicit import (
+        boundary_ess_bl, particular_bl,
+    )
+    from dolfinx_eqlb_tpu_torch.ops.load_moments import load_moments
+    from dolfinx_eqlb_tpu_torch.ops.reduced_step import (
+        reduced_step, reduced_step_plain,
+    )
+
+    b = eng.buckets[key]
+    Fv, Fq = load_moments(dprT, *(dv[name] for name in (
+        "cells_bl", "combo_bl", "J_bl", "K_bl", "signs_bl", "detJ_bl")),
+        refd["RhatC"], refd["T3C"], refd["hatgC"])
+    ess, hv = (boundary_ess_bl(eng, fk, bv, dv, refd) if b.is_boundary
+               else (None, None))
+    sp = particular_bl(eng, key, Fq, ess, hv, dv)
+    tables = (dv["Mc_bl"], dv["patch_idx"], dv["Zunit"], dv["ucols"],
+              dv["exit_idx"], dv["cumalpha_bl"], dv["sel"], dv.get("Ainv_bl"))
+    got = reduced_step(sp.clone(), Fv, *tables)
+    want = reduced_step_plain(sp.clone(), Fv, *tables)
+    sync(eng.device)
+    err = float((got - want).abs().max() / want.abs().max())
+    del got, want, Fq
+    Dz = dv["Zunit"].shape[-1]
+    P = dv["Mc_bl"].shape[-1]
+    nbytes, flops = reduced_step_work(
+        b.ncells, b.nspokes, sp.shape[0], Dz, P, n_rhs, sp.element_size(),
+        not b.is_boundary)
+    bound_ms, bound_by = bound(nbytes, flops, sp.dtype)
+    # repeated in place on one sp: only the values move, not the work
+    ms = timer.ms(lambda: reduced_step(sp, Fv, *tables))
+    plain_ms = timer.fit(lambda: reduced_step_plain(sp, Fv, *tables))
+    return {"key": str(key), "n": b.ncells, "P": P, "Dz": Dz,
+            "n_rhs": n_rhs, "boundary": b.is_boundary,
+            "dtype": dname(sp.dtype), "ms": ms, "plain_ms": plain_ms,
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+            "of_bound": ms / bound_ms, "max_rel_err": err, "limit": tol,
+            "ok": err <= tol}
 
 
 def report_load_moments(r: dict, nph: int, failures: list) -> None:
@@ -3992,6 +4096,30 @@ def report_load_moments(r: dict, nph: int, failures: list) -> None:
     if r["launches_per_call"] != r["chunks"] or r["routes"] != ["kernel"]:
         failures.append(f"K5 launches {r['launches_per_call']} a call over "
                         f"{r['chunks']} chunks, routes {r['routes']}")
+    for row in r["k6_rows"]:
+        log(f"[26/{nph}] K6 chunk {row['key']} n={row['n']} P={row['P']} "
+            f"Dz={row['Dz']} n_rhs={row['n_rhs']} "
+            f"{'boundary' if row['boundary'] else 'interior'} "
+            f"{row['dtype']}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}, {row['bytes'] / 1e6:.1f} MB; "
+            f"{row['of_bound']:.2f}x), rel err {row['max_rel_err']:.2e} "
+            f"(limit {row['limit']:.0e})" + ("" if row["ok"] else "  FAILED"))
+    c = r["k6_call"]
+    want = {"inverse": c["interior_chunks"],
+            "rhs": r["chunks"] - c["interior_chunks"]}
+    log(f"[26/{nph}] K6 launches a call {c['launches']} over {r['chunks']} "
+        f"chunks, by epilogue {c['by_epilogue']}; se.reduced_rhs routes "
+        f"{c['rhs_routes']}, se.reduced_solve routes {c['solve_routes']}")
+    if not all(row["ok"] for row in r["k6_rows"]):
+        failures.append("K6 disagrees with its plain version")
+    if (c["launches"] != r["chunks"] or c["by_epilogue"] != want
+            or c["rhs_routes"] != ["kernel"]
+            or c["solve_routes"].count("inverse") != c["interior_chunks"]):
+        failures.append(f"K6 launches {c['launches']} a call over "
+                        f"{r['chunks']} chunks, by epilogue "
+                        f"{c['by_epilogue']} (want {want}), routes "
+                        f"{c['rhs_routes']} / {c['solve_routes']}")
 
 
 def phase_bench(n: int, card: str, device) -> dict:
@@ -4249,6 +4377,15 @@ def main(argv=None) -> int:
     if main_res["k5_launches_per_call"] != main_res["chunks"]:
         failures.append(f"main path: K5 {main_res['k5_launches_per_call']} "
                         f"a call over {main_res['chunks']} chunks")
+    k6_split = {"inverse": main_res["interior_chunks"] * main_res["calls"],
+                "rhs": (main_res["chunks"] - main_res["interior_chunks"])
+                * main_res["calls"]}
+    if (main_res["k6_launches_per_call"] != main_res["chunks"]
+            or main_res["k6_launches_by_epilogue"] != k6_split):
+        failures.append(f"main path: K6 {main_res['k6_launches_per_call']} "
+                        f"a call over {main_res['chunks']} chunks, by "
+                        f"epilogue {main_res['k6_launches_by_epilogue']} "
+                        f"(want {k6_split})")
     check_k1_routes("main path", main_res["k1_launches_by_route"], shapes,
                     torch.float32, failures)
     if not (main_res["shape_ok"] and main_res["finite"]):
@@ -4321,7 +4458,7 @@ def main(argv=None) -> int:
     log("    detail: " + json.dumps(mixed))
     if not mixed["ok"]:
         failures.append("mixed path disagrees with the f64 plain route")
-    if min(mixed["launches"][kn] for kn in ("K1", "K4", "K5")) <= 0:
+    if min(mixed["launches"][kn] for kn in ("K1", "K4", "K5", "K6")) <= 0:
         failures.append(f"mixed path skipped a kernel: {mixed['launches']}")
     # the mixed path runs K1 in f32
     check_k1_routes("mixed path", mixed["k1_launches_by_route"],
@@ -4526,6 +4663,12 @@ def main(argv=None) -> int:
                           and r["n_rhs"] == 1),
                          key=lambda r: r["n"] * r["P"]),
                      [r["max_rel_err"] for r in lm["rows"]]),
+        # K6's likewise: its largest f64 one-field interior chunk
+        kernel_entry("K6 reduced_step", K6_SOURCE, K6_REPLACES, total("K6"),
+                     max((r for r in lm["k6_rows"] if r["dtype"] == "float64"
+                          and r["n_rhs"] == 1 and not r["boundary"]),
+                         key=lambda r: r["n"] * r["P"]),
+                     [r["max_rel_err"] for r in lm["k6_rows"]]),
     ]
     for entry in entries:
         entry["launches_by_path"] = {
@@ -4594,6 +4737,18 @@ def main(argv=None) -> int:
                            main_res["k5_launches_per_call"],
                            "phase26_f64": lm["launches_per_call"]},
         chunks=lm["rows"])
+    entries[5].pop("max_abs_err")
+    entries[5].update(
+        max_rel_err={dt: max(r["max_rel_err"] for r in lm["k6_rows"]
+                             if r["dtype"] == dt)
+                     for dt in ("float32", "float64")},
+        launches_per_call={"semiexplicit_f32":
+                           main_res["k6_launches_per_call"],
+                           "phase26_f64": lm["k6_call"]["launches"]},
+        launches_by_epilogue={"semiexplicit_f32":
+                              main_res["k6_launches_by_epilogue"],
+                              "phase26_f64": lm["k6_call"]["by_epilogue"]},
+        chunks=lm["k6_rows"])
     entries[2].update(
         k3_route=k3_row["route"], cluster_source=K3_CLUSTER_SOURCE,
         beside={a: k3_row[f"{a}_ms"] for a in k3_row["beside"]},

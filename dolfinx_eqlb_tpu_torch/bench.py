@@ -36,7 +36,7 @@ What differs from ``bench.py``:
   ``data_s``, ``engine_tables_s``, ``geometry_caches_s``,
   ``first_call_s``, ``peak_mem_gib`` over the line's calls and
   ``launches``: each kernel's launches per call of the line (K1 by route,
-  K2, K3, K4, K5) and the engine's pivoted solves per call;
+  K2, K3, K4, K5, K6) and the engine's pivoted solves per call;
 * the ``--mixed`` re-check in f64 runs in this process on the CPU (the
   reference needed a subprocess to reach its CPU backend), and its
   failure fails the run;
@@ -75,6 +75,7 @@ from .mesh import unit_square
 from .models.biot import biot_bench_fields
 from .ops.lane_select import combine_gather, ds_combine_gather
 from .ops.load_moments import load_moments
+from .ops.reduced_step import reduced_step
 from .ops.patch_solve import batched_kkt_solve, batched_kkt_solve_bl
 
 __all__ = ["main", "setup", "cli", "CHUNK", "CHUNK_MIXED"]
@@ -203,6 +204,7 @@ def _counts(engine) -> dict:
     return {"K1": dict(batched_kkt_solve_bl.launches_by_route),
             "K2": combine_gather.launches, "K3": batched_kkt_solve.launches,
             "K4": ds_combine_gather.launches, "K5": load_moments.launches,
+            "K6": reduced_step.launches,
             "pivoted_solves": engine.pivoted_solves,
             "input_uploads": engine.input_uploads}
 
@@ -210,7 +212,7 @@ def _counts(engine) -> dict:
 def _timed(call, engine, device, rounds, per_round):
     """``rounds`` rounds of ``per_round`` calls in flight, a sync closing
     each round (host clock): the last output, ms per call of each round,
-    launches per call (K1 by route, K2, K3, K4, K5, pivoted solves, the
+    launches per call (K1 by route, K2, K3, K4, K5, K6, pivoted solves, the
     boundary data's host-to-device uploads, and the last call's bytes of
     them, ``input_bytes``) and the peak device memory in GiB (None on the
     CPU)."""
@@ -228,7 +230,8 @@ def _timed(call, engine, device, rounds, per_round):
     calls = rounds * per_round
     launches = {"K1": {rt: (n - before["K1"][rt]) / calls
                        for rt, n in after["K1"].items()}}
-    for name in ("K2", "K3", "K4", "K5", "pivoted_solves", "input_uploads"):
+    for name in ("K2", "K3", "K4", "K5", "K6", "pivoted_solves",
+                 "input_uploads"):
         launches[name] = (after[name] - before[name]) / calls
     launches["input_bytes"] = engine.input_bytes
     peak = (torch.cuda.max_memory_allocated(device) / 2**30

@@ -14,8 +14,9 @@ problem).  ``EqlbEngine.equilibrate`` runs one of two modes:
      their inverses through K1 (``ops.patch_solve``);
   3. per call, per bucket (``semiexplicit.solve_bucket_semiexplicit``): load
      moments (K5, ``ops.load_moments``), the explicit step and the reduced
-     solve — a cached-inverse product on interior buckets, a masked K1
-     solve on boundary buckets;
+     step (K6, ``ops.reduced_step``): the residual's reduced right-hand
+     side and, on interior buckets, the cached inverse applied in the same
+     pass; boundary buckets then take a masked K1 solve;
      with ``weak_symmetry=True``, then the weak-symmetry correction of the
      two stress rows (``stress.weak_symmetry_bucket_bl``, from the stress
      caches ``ensure_stress_caches`` builds once, solved with pivoting);
@@ -211,8 +212,9 @@ class EqlbEngine:
 
     * ``mode``: "semiexplicit" (default) or "kkt" (see the module
       docstring), as in the reference.  On the card the semi-explicit
-      mode takes RT degree 1-4, those of its load-moments kernel (K5,
-      ``ops.load_moments``); a call at another degree raises before any
+      mode takes RT degree 1-4, those of its load-moments and
+      reduced-step kernels (K5, ``ops.load_moments``; K6,
+      ``ops.reduced_step``); a call at another degree raises before any
       work.
     * ``solver``: "kernel" (default; K1 for the batch-last solves, K3 for
       the KKT systems up to the reference's size rule), "torch"
@@ -442,6 +444,7 @@ class EqlbEngine:
                     "sel": i64(st["sel"]),
                     "exit_idx": i64(st["exit_idx"]),
                     "Zunit": f(reduced_basis(st, b.ncells, k)),
+                    "ucols": i64(st["ucols"]),
                 }
                 if b.is_boundary:
                     d["bspokes"] = i64(t["bspokes"])
@@ -451,7 +454,7 @@ class EqlbEngine:
                 # interior buckets also cache the explicit inverse (boundary
                 # buckets mask A_z per RHS before solving)
                 d["Mc_bl"] = mass_matrices_bl(d, refd)
-                d["Az_bl"], _ = reduced_system_bl(self, key, d["Mc_bl"], d)
+                d["Az_bl"] = reduced_system_bl(self, key, d["Mc_bl"], d)
                 if not b.is_boundary:
                     Dz, _, P = d["Az_bl"].shape
                     eye = torch.eye(Dz, dtype=dt, device=devc)[:, :, None]
@@ -723,7 +726,8 @@ class EqlbEngine:
             raise ValueError(
                 f"the semi-explicit mode on the card takes RT degree "
                 f"{LOAD_MOMENTS_DEGREES[0]}-{LOAD_MOMENTS_DEGREES[-1]} (its "
-                f"load-moments kernel is built for those), not {self.k}; "
+                f"load-moments and reduced-step kernels are built for "
+                f"those), not {self.k}; "
                 f"run degree {self.k} with device='cpu' or mode='kkt'")
 
     def _bucket_solutions(self, dpT, drT, facet_kind, bvals,

@@ -19,9 +19,11 @@ as the reference — tensors are (small dims..., P) with the patch batch last,
 and multi-RHS data is FOLDED into that axis (X = n_rhs * P, RHS-major,
 x = r * P + p) so the masked boundary systems of every RHS form one batch.
 The reference's unrolled broadcast-FMA loops, which dodged TPU tile padding,
-are plain ``torch.einsum`` contractions here, but for the load moments,
-which one CUDA kernel computes on the card (K5, ``ops.load_moments``);
-every index below is static per bucket.
+are plain ``torch.einsum`` contractions here, but for the load moments and
+the reduced step (the residual's right-hand side and, on interior buckets,
+the cached inverse applied), which CUDA kernels compute on the card (K5,
+``ops.load_moments``; K6, ``ops.reduced_step``); every index below is
+static per bucket.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops.load_moments import load_moments
+from ..ops.reduced_step import _bx, reduced_step
 from ..utils.profiling import annotate, span
 
 __all__ = [
@@ -215,16 +218,6 @@ def reduced_basis(se: dict, ncells: int, k: int) -> np.ndarray:
     return E
 
 
-def _bx(a: torch.Tensor, n_rhs: int) -> torch.Tensor:
-    """Broadcast a geometry tensor (..., P) along the folded RHS axis ->
-    (..., n_rhs * P), RHS-major (a copy when n_rhs > 1)."""
-    if n_rhs == 1:
-        return a
-    P = a.shape[-1]
-    return a.unsqueeze(-2).expand(*a.shape[:-1], n_rhs, P).reshape(
-        *a.shape[:-1], n_rhs * P)
-
-
 def _onehot(combo: torch.Tensor, dtype) -> torch.Tensor:
     """combo (n, X) ids in [0, 6) -> one-hot weights (n, 6, X)."""
     q = torch.arange(6, device=combo.device).view(1, 6, 1)
@@ -314,37 +307,26 @@ def particular_bl(engine, key, Fq, ess, hatvals, dv):
     return sp
 
 
-def reduced_system_bl(engine, key, Mc, dv, resid=None, matrix=True):
-    """A_z = Z^T M Z (Dz, Dz, P) and, given the canonical per-cell load
-    residual ``resid`` (n, nkeep, X) on the folded lane axis,
-    b_z = Z^T resid (Dz, X).  ``matrix=False`` skips A_z (the engine serves
-    it from its geometry cache).
+def reduced_system_bl(engine, key, Mc, dv):
+    """A_z = Z^T M Z (Dz, Dz, P), geometry-only (the engine caches it).
 
     Z per cell is the static 0/1 unit-column map E plus column 0, whose
     weights wen / wex (the ring-mode values of the cell's entry and exit
-    spokes) sit on canonical slots 0 and k."""
-    st = engine.se_static[key]
+    spokes) sit on canonical slots 0 and k.  The right-hand side
+    b_z = Z^T resid is ``ops.reduced_step``'s."""
     k = engine.k
     n = engine.buckets[key].ncells
-    P = Mc.shape[-1]
     E = dv["Zunit"]  # (n, nkeep, Dz); E[:, :, 0] == 0
     d0 = dv["cumalpha_bl"]  # (ns, P)
     wen, wex = d0[:n], d0[dv["exit_idx"]]  # (n, P)
 
-    Az = bz = None
-    if matrix:
-        Mv = Mc[:, :, 0] * wen[:, None] + Mc[:, :, k] * wex[:, None]
-        Az = torch.einsum("csd,cstp,cte->dep", E, Mc, E).contiguous()
-        a = torch.einsum("csd,csp->dp", E, Mv)
-        Az[0] = a
-        Az[:, 0] = a
-        Az[0, 0] = (wen * Mv[:, 0] + wex * Mv[:, k]).sum(0)
-    if resid is not None:
-        n_rhs = resid.shape[-1] // P
-        bz = torch.einsum("csd,csx->dx", E, resid)
-        bz[0] = (_bx(wen, n_rhs) * resid[:, 0]
-                 + _bx(wex, n_rhs) * resid[:, k]).sum(0)
-    return Az, bz
+    Mv = Mc[:, :, 0] * wen[:, None] + Mc[:, :, k] * wex[:, None]
+    Az = torch.einsum("csd,cstp,cte->dep", E, Mc, E).contiguous()
+    a = torch.einsum("csd,csp->dp", E, Mv)
+    Az[0] = a
+    Az[:, 0] = a
+    Az[0, 0] = (wen * Mv[:, 0] + wex * Mv[:, k]).sum(0)
+    return Az
 
 
 def z_mask_x(engine, key, ess):
@@ -383,8 +365,7 @@ def solve_bucket_semiexplicit(engine, key, dprT, facet_kind, bvals, dv, refd):
     n, ns = b.ncells, b.nspokes
     n_rhs = dprT.shape[0]
     Mc = dv["Mc_bl"]  # (n, nkeep, nkeep, P)
-    nkeep, P = Mc.shape[1], Mc.shape[-1]
-    X = n_rhs * P
+    P = Mc.shape[-1]
     Dz = st["Dz"]
 
     with span("se.bucket", key=key, P=P, boundary=b.is_boundary, Dz=Dz):
@@ -402,11 +383,11 @@ def solve_bucket_semiexplicit(engine, key, dprT, facet_kind, bvals, dv, refd):
             sp = particular_bl(engine, key, Fq, ess, hatvals, dv)  # (nflux, X)
 
         with span("se.reduced_rhs"):
-            sp_can = sp[dv["patch_idx"]].view(n, nkeep, n_rhs, P)
-            msp = torch.einsum("cibp,cbrp->cirp", Mc, sp_can).reshape(
-                n, nkeep, X)
-            _, bz = reduced_system_bl(engine, key, Mc, dv, resid=Fv - msp,
-                                      matrix=False)
+            # boundary buckets: the reduced right-hand side b_z (Dz, X);
+            # interior buckets: sp itself, the solution written into it
+            bz = reduced_step(sp, Fv, Mc, dv["patch_idx"], dv["Zunit"],
+                              dv["ucols"], dv["exit_idx"], dv["cumalpha_bl"],
+                              dv["sel"], dv.get("Ainv_bl"))
 
         with span("se.reduced_solve"):
             if b.is_boundary:
@@ -417,15 +398,12 @@ def solve_bucket_semiexplicit(engine, key, dprT, facet_kind, bvals, dv, refd):
                     + eye[:, :, None] * (~free[None])
                 br = torch.where(free, bz, 0.0)
                 y = engine._dense_solve_bl(Ar, br[:, None, :])[:, 0]  # (Dz, X)
+                if Dz > 1:
+                    sp.index_add_(0, dv["sel"], y[1:])
+                sp[0: ns * k: k] += y[0][None] * _bx(dv["cumalpha_bl"], n_rhs)
             else:
-                # geometry-only system with a cached explicit inverse
+                # geometry-only system with a cached explicit inverse, which
+                # the reduced step applied
                 annotate(route="inverse")
-                y = torch.einsum("dep,erp->drp", dv["Ainv_bl"],
-                                 bz.view(Dz, n_rhs, P)).reshape(Dz, X)
-
-            sol = sp
-            if Dz > 1:
-                sol.index_add_(0, dv["sel"], y[1:])
-            sol[0: ns * k: k] += y[0][None] * _bx(dv["cumalpha_bl"], n_rhs)
         # unfold X -> (n_rhs, nflux, P)
-        return sol.view(-1, n_rhs, P).permute(1, 0, 2)
+        return sp.view(-1, n_rhs, P).permute(1, 0, 2)

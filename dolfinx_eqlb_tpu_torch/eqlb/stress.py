@@ -335,7 +335,7 @@ def weak_symmetry_bucket_reduced(engine, key, sol2, facet_kind2, d_proj2,
 
     zeros2 = torch.zeros_like(d_proj2)
     Mc, _, _, _ = engine._element_data(d_proj2, zeros2[..., 0, :], dv, refd)
-    Az, _ = reduced_system_bl(engine, key, Mc.movedim(0, -1), dv)
+    Az = reduced_system_bl(engine, key, Mc.movedim(0, -1), dv)
     Az = Az.movedim(-1, 0)  # (P, Dz, Dz)
     Bsym = _bsym_canonical(engine, key, dv, refd)  # (P, n, 3, 2, nkeep)
     adet = dv["detJ"].abs()

@@ -81,6 +81,10 @@ _SIGNATURES = {
     #  k, n_rhs, nc, n, P, stream)
     "eqlb_load_moments_f32": [*[_P] * 12, _I, _I, _I, _I, _I, _P],
     "eqlb_load_moments_f64": [*[_P] * 12, _I, _I, _I, _I, _I, _P],
+    # (sp, Fv, Mc, patch_idx, ucols, exit_idx, cumalpha, sel, Ainv, bz,
+    #  k, n, ns, Dz, n_rhs, P, Mc's c / i / b strides, stream)
+    "eqlb_reduced_step_f32": [*[_P] * 10, *[_I] * 9, _P],
+    "eqlb_reduced_step_f64": [*[_P] * 10, *[_I] * 9, _P],
 }
 
 

@@ -68,7 +68,8 @@ def load_moments_plain(dprT, cells, combo, J, K, signs, detJ, RhatC, T3C,
     Fv = Fv * torch.sign(detJ)[:, None] * signs
     contr = torch.einsum("apcx,cax->cpx", dpg, gpsi)
     Fq = (Fq + contr) * detJ.abs()[:, None]
-    return Fv, Fq
+    # the kernel's layout, which the reduced step (K6) takes
+    return Fv.contiguous(), Fq.contiguous()
 
 
 def _check(dprT, cells, combo, J, K, signs, detJ, RhatC, T3C, hatgC):

@@ -180,7 +180,7 @@ def test_main(mode, bench_runs, jax_engines):
         launches = line["launches"]
         assert not any(launches["K1"].values())
         assert launches["K2"] == launches["K3"] == launches["K4"] == 0
-        assert launches["K5"] == 0
+        assert launches["K5"] == launches["K6"] == 0
         assert launches["pivoted_solves"] == (2 if mode == "stress" else 0)
     assert piped["pipelined_ms"] == min(piped["pipelined_samples_ms"])
     if mode == "mixed":
