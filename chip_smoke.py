@@ -26,7 +26,7 @@ the port's ``demos.lshape_adaptive``, ``demos.error_estimation`` and
 ``demos.discont_coeff``, held to the JAX package's committed runs; then
 weakly symmetric stress equilibration (K1, K2 and K3 on its operands):
 the stress engine, the elasticity user flow and its committed runs, the
-KKT mode and the reduced formulation, and the adaptive Cook loop; then
+KKT mode, and the adaptive Cook loop; then
 geometric multigrid and Biot poro-elasticity (K1, K2 on the Biot path's
 operands): ``bench.py 500 3 --biot``'s data and engine calls, the Biot
 demo's flow, and the multigrid solvers and perftest series; then patch
@@ -121,10 +121,7 @@ Phases, one line each:
       MINRES) within 1e-8 relative;
   17. the same flow on ``unit_square(64)`` in the KKT mode against the
       semi-explicit mode (1e-9), K3's launches by route and K3 on the
-      call's operands; ``stress.weak_symmetry_bucket_reduced`` on a
-      boundary bucket of ``unit_square_unstructured(32)`` (its K3 solve
-      against the plain version, its correction against the cached one
-      within 1e-9) and on an interior bucket (vanishing pivots counted);
+      call's operands;
   18. the adaptive Cook loop (``demos.cook_adaptive``: P2 primal, RT3,
       theta 0.5, ``cook_membrane(2, 2)``): the demo's 6 iterations and
       overkill reference, the first 10 iterations against the CPU, the
@@ -238,6 +235,9 @@ import time
 
 import numpy as np
 import torch
+
+from dolfinx_eqlb_tpu_torch.ops import launches as read_launches
+from dolfinx_eqlb_tpu_torch.ops import reset_launches
 
 K1_SOURCE = "dolfinx_eqlb_tpu_torch/csrc/patch_solve.cu"
 K1_REPLACES = "dolfinx_eqlb_tpu/ops/patch_solve.py:42"
@@ -379,34 +379,6 @@ def make_data(msh, k: int, n_rhs: int, seed: int, np_dtype, kinds=False):
         bv[fk != 2] = 0.0
     return (d_proj.astype(np_dtype), d_rhs.astype(np_dtype), fk,
             bv.astype(np_dtype))
-
-
-def kernel_wrappers() -> dict:
-    """The kernels' wrappers by id; each counts its launches."""
-    from dolfinx_eqlb_tpu_torch.ops.lane_select import (
-        combine_gather, ds_combine_gather,
-    )
-    from dolfinx_eqlb_tpu_torch.ops.load_moments import load_moments
-    from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
-        batched_kkt_solve, batched_kkt_solve_bl,
-    )
-    from dolfinx_eqlb_tpu_torch.ops.reduced_step import reduced_step
-
-    return {"K1": batched_kkt_solve_bl, "K2": combine_gather,
-            "K3": batched_kkt_solve, "K4": ds_combine_gather,
-            "K5": load_moments, "K6": reduced_step}
-
-
-def reset_launches():
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
-        for split in ("launches_by_route", "launches_by_epilogue"):
-            if hasattr(fn, split):
-                setattr(fn, split, dict.fromkeys(getattr(fn, split), 0))
-
-
-def read_launches() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def drive(call, device, strict: int = 5, rounds: int = 3,
@@ -837,10 +809,8 @@ def phase_main(engine, data, device, profile=False):
     res["geometry_caches_s"] = time.perf_counter() - t0
     x, timing = drive(call, device)
     res["launches"] = read_launches()
-    res["k1_launches_by_route"] = dict(
-        kernel_wrappers()["K1"].launches_by_route)
-    res["k6_launches_by_epilogue"] = dict(
-        kernel_wrappers()["K6"].launches_by_epilogue)
+    res["k1_launches_by_route"] = read_launches(split=True)["K1"]
+    res["k6_launches_by_epilogue"] = read_launches(split=True)["K6"]
     res.update(timing)
     # one more call on the boundary data's host arrays, as ``_solve`` hands
     # them: only the boundary facets' rows go up, and the output is the
@@ -863,7 +833,7 @@ def phase_main(engine, data, device, profile=False):
     res["inverse_build_ms"] = inverse_build_ms(engine, device)
     res["inverse_build_ms_by_route"] = {
         rt: inverse_build_ms(engine, device, rt)
-        for rt in kernel_wrappers()["K1"].launches_by_route}
+        for rt in read_launches(split=True)["K1"]}
     res["patches"] = npatches
     res["patches_per_s_strict"] = npatches / (res["strict_ms_median"] / 1e3)
     res["patches_per_s_pipelined"] = npatches / (res["pipelined_ms_min"] / 1e3)
@@ -1136,7 +1106,6 @@ def kkt_stages(eng, args, device) -> tuple[dict, dict]:
     whether K3's launch count moved; host clock around synchronised
     stages, best of 2 calls.  Returns the stages and the systems
     ``torch.linalg.solve`` took, by D."""
-    k3 = kernel_wrappers()["K3"]
     dp, dr, fk, bv = args
     kdev, krefd = eng._kkt_tables()
     best, pivoted = {}, {}
@@ -1150,12 +1119,12 @@ def kkt_stages(eng, args, device) -> tuple[dict, dict]:
                                              krefd)
             sync(device)
             t1 = time.perf_counter()
-            before = k3.launches
+            before = read_launches()["K3"]
             eng._kkt_solve(Ar, br[..., None])
             sync(device)
             ms = (time.perf_counter() - t1) * 1e3
             stages["assembly_ms"] += (t1 - t0) * 1e3
-            if k3.launches > before:
+            if read_launches()["K3"] > before:
                 stages["solve_k3_ms"] += ms
             else:
                 D = Ar.shape[-1]
@@ -1209,8 +1178,7 @@ def phase_kkt(eng64, msh, device, operand_checks=False):
         x, res = drive(lambda: eng.equilibrate(*args), device, strict=3,
                        rounds=1, per_round=4)
         res["launches"] = read_launches()
-        res["k3_launches_by_route"] = dict(
-            kernel_wrappers()["K3"].launches_by_route)
+        res["k3_launches_by_route"] = read_launches(split=True)["K3"]
         res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         res["stages_ms"], res["pivoted_systems_by_D"] = kkt_stages(
             eng, args, device)
@@ -1442,8 +1410,7 @@ def phase_mixed(V, buckets, msh, device):
         lambda: engm.equilibrate(dpT, drT, fk, bv, transposed_inputs=True),
         device)
     res["launches"] = read_launches()
-    res["k1_launches_by_route"] = dict(
-        kernel_wrappers()["K1"].launches_by_route)
+    res["k1_launches_by_route"] = read_launches(split=True)["K1"]
     res["k1_shapes"] = solve_shapes(engm)
     res.update(timing)
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
@@ -1613,8 +1580,7 @@ def flux_flow(msh, bc: str, device, degree: int = 2) -> dict:
         st(f"{name}_equilibrate_1", eq.equilibrate_fluxes)
         st(f"{name}_equilibrate_2", eq.equilibrate_fluxes)
         res["launches"][name] = read_launches()
-        res["k1_launches_by_route"][name] = dict(
-            kernel_wrappers()["K1"].launches_by_route)
+        res["k1_launches_by_route"][name] = read_launches(split=True)["K1"]
         res["k1_shapes"][name] = solve_shapes(eq.engine)
         if torch.device(device).type == "cuda":
             res["kernel_checks"][name] = flux_kernel_checks(eq)
@@ -1832,7 +1798,6 @@ def lshape_loop(order: int, device, max_iter: int = 90, timer=None,
     from dolfinx_eqlb_tpu_torch.demos import lshape_adaptive
 
     theta, tol = 0.6, 1e-6
-    k1, k2 = kernel_wrappers()["K1"], kernel_wrappers()["K2"]
     cuda = torch.device(device).type == "cuda"
     steps, last = [], {}
     if cuda:
@@ -1841,13 +1806,17 @@ def lshape_loop(order: int, device, max_iter: int = 90, timer=None,
         base = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
-    prev = {"route": dict(k1.launches_by_route), "K2": k2.launches}
+    def k1_k2():
+        return {"route": read_launches(split=True)["K1"],
+                "K2": read_launches()["K2"]}
+
+    prev = k1_k2()
 
     def hook(step):
-        route = {rt: n - prev["route"][rt]
-                 for rt, n in k1.launches_by_route.items()}
-        k2_step = k2.launches - prev["K2"]
-        prev.update(route=dict(k1.launches_by_route), K2=k2.launches)
+        now = k1_k2()
+        route = {rt: n - prev["route"][rt] for rt, n in now["route"].items()}
+        k2_step = now["K2"] - prev["K2"]
+        prev.update(now)
         solver = step["solver"]
         row = dict(it=step["it"], cells=step["mesh"].num_cells,
                    cg_iterations=solver.last_iterations,
@@ -1883,7 +1852,7 @@ def lshape_loop(order: int, device, max_iter: int = 90, timer=None,
            "seconds": time.perf_counter() - t0,
            "k1_ms_by_route": clock.ms_by_route(),
            "launches": read_launches(),
-           "k1_launches_by_route": dict(k1.launches_by_route),
+           "k1_launches_by_route": read_launches(split=True)["K1"],
            "steps": steps, "iterations": len(steps),
            "final_cells": msh.num_cells, "final_eta": steps[-1]["eta"],
            "k1_shapes": sorted({s for row in steps for s in row["k1_shapes"]}),
@@ -2023,7 +1992,6 @@ def phase_uniform(device, nref: int = 9, ncpu: int = 5) -> dict:
     from dolfinx_eqlb_tpu_torch.eqlb import FluxEqlbEV, FluxEqlbSE
 
     want = np.loadtxt(repo_file(CONV_CSV), delimiter=",")
-    k1 = kernel_wrappers()["K1"]
     out = {}
     for name, Eqlb in (("SE", FluxEqlbSE), ("EV", FluxEqlbEV)):
         stats = []
@@ -2033,7 +2001,7 @@ def phase_uniform(device, nref: int = 9, ncpu: int = 5) -> dict:
                                     device=device, stats=stats)
         res = {"seconds": time.perf_counter() - t0,
                "launches": read_launches(),
-               "k1_launches_by_route": dict(k1.launches_by_route),
+               "k1_launches_by_route": read_launches(split=True)["K1"],
                "rows": rows.tolist(), "stats": stats}
         cpu = error_estimation.run(Eqlb, 1, 1, "dirichlet", ncpu,
                                    device="cpu")
@@ -2049,7 +2017,7 @@ def phase_uniform(device, nref: int = 9, ncpu: int = 5) -> dict:
     card = discont_coeff.adaptive_loop(max_iter=12, verbose=False,
                                        device=device, stats=stats)
     kel = {"seconds": time.perf_counter() - t0, "launches": read_launches(),
-           "k1_launches_by_route": dict(k1.launches_by_route),
+           "k1_launches_by_route": read_launches(split=True)["K1"],
            "history": card, "stats": stats}
     cpu = discont_coeff.adaptive_loop(max_iter=12, verbose=False,
                                       device="cpu")
@@ -2263,8 +2231,7 @@ def phase_stress(V, buckets, msh, device) -> dict:
     reset_launches()
     x, timing = drive(call, device)
     res["launches"] = read_launches()
-    res["k1_launches_by_route"] = dict(
-        kernel_wrappers()["K1"].launches_by_route)
+    res["k1_launches_by_route"] = read_launches(split=True)["K1"]
     res.update(timing)
     ncalls = 1 + len(timing["strict_ms"]) + 8 * len(timing["pipelined_ms"])
     res["calls"] = ncalls
@@ -2393,8 +2360,7 @@ def phase_elasticity(n: int, device) -> dict:
         res["failed"] = True
     res["seconds"] = time.perf_counter() - t0
     res["launches"] = read_launches()
-    res["k1_launches_by_route"] = dict(
-        kernel_wrappers()["K1"].launches_by_route)
+    res["k1_launches_by_route"] = read_launches(split=True)["K1"]
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     res["checks"] = info.get("checks", {})
     for key in ("stages_s", "iterations", "maxiter", "cells"):
@@ -2486,6 +2452,10 @@ def report_elasticity(r: dict, nph: int, failures: list) -> None:
 # the smallest |u_jj| / max|A| that the pivot-free order may meet on the
 # systems the reference pivots (the bar of tests/test_torch_kkt.py)
 PIVOT_FLOOR = 1e-8
+# the largest D the reference solves without pivoting (its TPU kernel's
+# VMEM budget); the port's K3 takes the KKT systems past it, which
+# ``k3_operand_checks`` holds to a pivoted solve
+REFERENCE_PIVOTS_PAST_D = 110
 
 
 def lu_pivot_stats(A, chunk: int = 4096) -> dict:
@@ -2526,13 +2496,11 @@ def lu_pivot_stats(A, chunk: int = 4096) -> dict:
 def k3_operand_checks(solves) -> list:
     """K3 against its plain version on captured batch-major operands, one
     row per operand set: within 1e-12 (f64) or 1e-4 (f32) of the plain
-    solve relative to its largest entry.  Past the reference's size rule
-    (``k3_takes``: D > 110), where the reference pivots, K3 is also held
-    to the pivoted ``torch.linalg.solve`` at the same bar, since the plain
-    version shares K3's pivot-free order, and, on f64 operands, no pivot
-    of that order may fall to ``PIVOT_FLOOR`` of max|A|
-    (``lu_pivot_stats``)."""
-    from dolfinx_eqlb_tpu_torch.eqlb.engine import k3_takes
+    solve relative to its largest entry.  Past ``REFERENCE_PIVOTS_PAST_D``,
+    where the reference pivots, K3 is also held to the pivoted
+    ``torch.linalg.solve`` at the same bar, since the plain version shares
+    K3's pivot-free order, and, on f64 operands, no pivot of that order
+    may fall to ``PIVOT_FLOOR`` of max|A| (``lu_pivot_stats``)."""
     from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
         batched_kkt_solve, batched_kkt_solve_plain, k3_plan,
     )
@@ -2551,7 +2519,7 @@ def k3_operand_checks(solves) -> list:
                    max_rel_err=rel, limit=tol,
                    ok=bool(torch.isfinite(x).all()) and rel <= tol)
         del xp
-        if not k3_takes(D):
+        if D > REFERENCE_PIVOTS_PAST_D:
             xl = torch.linalg.solve(A, b)
             row["linalg_max_rel_err"] = (float((x - xl).abs().max())
                                          / float(xl.abs().max()))
@@ -2568,7 +2536,7 @@ def k3_operand_checks(solves) -> list:
 def capture_dense_solves(call, check=False):
     """Run ``call()`` with the engine's batch-major K3 solves recorded
     (the engine module's ``batched_kkt_solve``, which the flux KKT stage
-    and ``_dense_solve`` call under their size rules): returns (call's
+    calls under ``k3_admits``): returns (call's
     result, [(A, b), ...] of the systems K3 took); with ``check``, each is
     held against its plain version as it comes (``k3_operand_checks``) and
     the check rows are returned instead, so that no operand outlives its
@@ -2596,24 +2564,8 @@ def phase_stress_kkt(device, n: int = 64) -> dict:
     the KKT mode (the flux KKT systems through K3, the full stress KKT
     systems through ``torch.linalg.solve``) against the semi-explicit mode,
     both rows within 1e-9; K3's launches by route, and K3 against its
-    plain version on the call's own operands.  Then
-    ``stress.weak_symmetry_bucket_reduced`` on the largest boundary bucket
-    of the unstructured ``unit_square_unstructured(32)`` (exact polynomial
-    stress, RT2): its K3 solve against the plain version, its correction
-    against the cached semi-explicit one (``weak_symmetry_bucket_bl``) of
-    the same bucket within 1e-9.  On an interior bucket the reduced
-    system's constraint block is singular by one (the constant mode, which
-    the multiplier row after it removes), so the pivot-free order meets a
-    vanishing pivot on any mesh: the largest interior bucket is run too,
-    and its patches with a non-finite correction are counted, not held."""
+    plain version on the call's own operands."""
     from dolfinx_eqlb_tpu_torch.demos import elasticity as demo
-    from dolfinx_eqlb_tpu_torch.eqlb.semiexplicit import (
-        solve_bucket_semiexplicit,
-    )
-    from dolfinx_eqlb_tpu_torch.eqlb.stress import (
-        weak_symmetry_bucket_bl, weak_symmetry_bucket_reduced,
-    )
-    from dolfinx_eqlb_tpu_torch.mesh import unit_square_unstructured
 
     res = {"n": n}
     info_se, info_kkt = {}, {}
@@ -2626,8 +2578,7 @@ def phase_stress_kkt(device, n: int = 64) -> dict:
              info=info_kkt, mode="kkt")
     res["seconds"] = time.perf_counter() - t0
     res["launches"] = read_launches()
-    res["k3_launches_by_route"] = dict(
-        kernel_wrappers()["K3"].launches_by_route)
+    res["k3_launches_by_route"] = read_launches(split=True)["K3"]
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     res["stages_s"] = info_kkt["stages_s"]
     res["checks"] = info_kkt["checks"]
@@ -2641,42 +2592,6 @@ def phase_stress_kkt(device, n: int = 64) -> dict:
     res["k3_checks"] = k3_operand_checks(solves)
     del info_se, info_kkt, se, kkt, solves
     torch.cuda.empty_cache()
-
-    msh = unit_square_unstructured(32, seed=1)
-    flow = stress_flow(msh, 2, device, poly_stress(2))
-    eq = flow["eq"]
-    eng = eq.engine
-    dev, refd = eng._device_tables()
-    fk = torch.as_tensor(eq.boundary_data.facet_kind, device=device)
-    bv = torch.as_tensor(eq.boundary_data.bvals, device=device)
-    dprT = torch.cat([eq._d_proj.movedim(1, -1),
-                      eq._d_rhs.movedim(1, -1)[:, None]], dim=1)
-    res["reduced"] = {}
-    for name, boundary in (("boundary", True), ("interior", False)):
-        key = max((k for k, b in eng.buckets.items()
-                   if b.is_boundary == boundary),
-                  key=lambda k: eng.buckets[k].npatches)
-        sol_bl = solve_bucket_semiexplicit(eng, key, dprT, fk, bv, dev[key],
-                                           refd)[:2].contiguous()
-        want = weak_symmetry_bucket_bl(eng, key, sol_bl, fk[:2], dev[key],
-                                       refd).movedim(-1, 1)
-        reset_launches()
-        got, red_solves = capture_dense_solves(
-            lambda: weak_symmetry_bucket_reduced(
-                eng, key, sol_bl.movedim(-1, 1), fk[:2], eq._d_proj[:2]))
-        launches = read_launches()
-        finite = torch.isfinite(got).all(dim=-1).all(dim=0)  # (P,)
-        red = {"bucket": str(key), "patches": eng.buckets[key].npatches,
-               "cells": msh.num_cells, "launches": launches,
-               "k3_launches_by_route": dict(
-                   kernel_wrappers()["K3"].launches_by_route),
-               "nonfinite_patches": int((~finite).sum()),
-               "max_abs_err_vs_bl": float(
-                   (got - want)[:, finite].abs().max()),
-               "limit": 1e-9 * max(1.0, float(want.abs().max()))}
-        if boundary:
-            red["k3_checks"] = k3_operand_checks(red_solves)
-        res["reduced"][name] = red
     return res
 
 
@@ -2691,19 +2606,6 @@ def report_stress_kkt(r: dict, nph: int, failures: list) -> None:
             f"D={c['D']} X={c['X']} {c['route']} max_rel_err "
             f"{c['max_rel_err']:.3e}" for c in r["k3_checks"])
         + f" (limit 1e-12); peak {r['peak_mem_gib']:.2f} GiB")
-    for name, red in r["reduced"].items():
-        log(f"[17/{nph}] weak_symmetry_bucket_reduced, {name} bucket "
-            f"{red['bucket']} ({red['patches']} patches) of "
-            f"unit_square_unstructured(32) ({red['cells']} cells): launches "
-            f"{red['launches']}, K3 by route {red['k3_launches_by_route']}; "
-            + ("K3 vs plain " + "; ".join(
-                f"D={c['D']} X={c['X']} {c['route']} max_rel_err "
-                f"{c['max_rel_err']:.3e}" for c in red["k3_checks"])
-               + " (limit 1e-12); " if "k3_checks" in red else "")
-            + f"patches with a non-finite correction (a vanishing pivot) "
-            f"{red['nonfinite_patches']}; max|reduced - cached| over the "
-            f"finite ones {red['max_abs_err_vs_bl']:.3e} (limit "
-            f"{red['limit']:.3e})")
     log("    detail: " + json.dumps(r))
     if not all(r["checks"].values()):
         failures.append(f"KKT-mode stress: a check failed: {r['checks']}")
@@ -2716,14 +2618,6 @@ def report_stress_kkt(r: dict, nph: int, failures: list) -> None:
     if not r["k3_checks"] or not all(c["ok"] for c in r["k3_checks"]):
         failures.append("KKT-mode stress: K3 disagrees with its plain "
                         "version")
-    red = r["reduced"]["boundary"]
-    if red["launches"]["K3"] <= 0 or not red["k3_checks"] \
-            or not all(c["ok"] for c in red["k3_checks"]):
-        failures.append("weak_symmetry_bucket_reduced: K3 not launched or "
-                        "off its plain version")
-    if red["nonfinite_patches"] or not red["max_abs_err_vs_bl"] <= red["limit"]:
-        failures.append("weak_symmetry_bucket_reduced disagrees with the "
-                        "cached correction on the boundary bucket")
 
 
 def cook_steps(device, **kw) -> tuple[list, list]:
@@ -2775,8 +2669,7 @@ def phase_cook(device, max_cells: int = 50_000) -> dict:
     res["demo"] = {"rows": rows, "steps": steps,
                    "seconds": time.perf_counter() - t0,
                    "launches": read_launches(),
-                   "k1_launches_by_route": dict(
-                       kernel_wrappers()["K1"].launches_by_route)}
+                   "k1_launches_by_route": read_launches(split=True)["K1"]}
     _, card = cook_steps(device, max_iter=10, overkill=False)
     _, cpu = cook_steps("cpu", max_iter=10, overkill=False)
     res["cpu_parity"] = dict(
@@ -2881,7 +2774,7 @@ def vcycle_ms(mg, timer, seed: int = 0) -> dict:
     """Device ms of one V-cycle of ``mg`` (CUDA events, cold L2): the cycle
     from each level down, and each level's own share (its cycle less the
     one below it)."""
-    from dolfinx_eqlb_tpu_torch.eqlb.engine import _full_f32_matmul
+    from dolfinx_eqlb_tpu_torch.utils.precision import full_f32_matmul
 
     ops = mg.operands()
     gen = torch.Generator(device=mg.device).manual_seed(seed)
@@ -2890,7 +2783,7 @@ def vcycle_ms(mg, timer, seed: int = 0) -> dict:
         o = ops[lvl]
         r = torch.randn(o["Dinv"].shape[0], generator=gen, device=mg.device,
                         dtype=mg.dtype) * o["free"]
-        with _full_f32_matmul():
+        with full_f32_matmul():
             down.append(timer.ms(lambda: mg._vcycle(lvl, r, ops), reps=5))
     own = [down[0]] + [b - a for a, b in zip(down, down[1:])]
     return {"apply_ms": down[-1], "cycle_from_level_ms": down,
@@ -2915,8 +2808,7 @@ def engine_call_checks(eng, call, weak_symmetry, dpT, drT, fk, bv, device,
     reset_launches()
     x, res = drive(call, device)
     res["launches"] = read_launches()
-    res["k1_launches_by_route"] = dict(
-        kernel_wrappers()["K1"].launches_by_route)
+    res["k1_launches_by_route"] = read_launches(split=True)["K1"]
     res["calls"] = 1 + len(res["strict_ms"]) + 8 * len(res["pipelined_ms"])
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     res["shape_ok"] = tuple(x.shape) == (dpT.shape[0], eng.V.ndofs)
@@ -3132,8 +3024,7 @@ def phase_biot_flow(device, n: int = 256, n_parity: int = 16) -> dict:
     demo.run(n, 2, device=device, verbose=False, info=info)
     res["seconds"] = time.perf_counter() - t0
     res["launches"] = read_launches()
-    res["k1_launches_by_route"] = dict(
-        kernel_wrappers()["K1"].launches_by_route)
+    res["k1_launches_by_route"] = read_launches(split=True)["K1"]
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     for key in ("stages_s", "iterations", "maxiter", "residual", "checks",
                 "cells"):
@@ -3419,8 +3310,7 @@ def shard_dryrun_rank(rank, world, device, backend, probe):
         reset_launches()
         x = sh.equilibrate(*args, weak_symmetry=ws, ws_skip_nodes=skip)
         launches = read_launches()
-        launches["K1_by_route"] = dict(
-            kernel_wrappers()["K1"].launches_by_route)
+        launches["K1_by_route"] = read_launches(split=True)["K1"]
         rec = dryrun_record(rank, engine, sh, x, args, ws, skip, groups)
         rec["launches"] = launches
         if probe and rank == 0:
@@ -3442,12 +3332,11 @@ def stress_shard_rank(rank, world, device, n, reps):
     operands (one more call of its part, without the reduce)."""
     import torch.distributed as dist
 
-    from dolfinx_eqlb_tpu_torch.eqlb.engine import (
-        EqlbEngine, _full_f32_matmul,
-    )
+    from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
     from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
     from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
     from dolfinx_eqlb_tpu_torch.mesh import unit_square
+    from dolfinx_eqlb_tpu_torch.utils.precision import full_f32_matmul
     from dolfinx_eqlb_tpu_torch.parallel import ShardedEqlbEngine
 
     dev = torch.device(device)
@@ -3492,8 +3381,7 @@ def stress_shard_rank(rank, world, device, n, reps):
         sync(dev)
         times.append((time.perf_counter() - t0) * 1e3)
     res["launches"] = read_launches()
-    res["k1_launches_by_route"] = dict(
-        kernel_wrappers()["K1"].launches_by_route)
+    res["k1_launches_by_route"] = read_launches(split=True)["K1"]
     res["calls"] = 1 + reps
     res["strict_ms"] = times
     res["strict_ms_median"] = float(np.median(times))
@@ -3505,7 +3393,7 @@ def stress_shard_rank(rank, world, device, n, reps):
         dist.barrier()
         sync(dev)
         t0 = time.perf_counter()
-        with _full_f32_matmul():
+        with full_f32_matmul():
             flat = loc._bucket_solutions(dpT, drT, fkd, bvd, True, None)
         sync(dev)
         t1 = time.perf_counter()
@@ -4015,9 +3903,8 @@ def phase_load_moments(n: int, device, timer) -> dict:
             launches = read_launches()["K5"]
             routes = sorted({str(r.attrs.get("route")) for r in recs
                              if r.name == "se.load_moments"})
-            k6 = kernel_wrappers()["K6"]
-            k6_call = {"launches": k6.launches,
-                       "by_epilogue": dict(k6.launches_by_epilogue),
+            k6_call = {"launches": read_launches()["K6"],
+                       "by_epilogue": read_launches(split=True)["K6"],
                        "interior_chunks": sum(
                            not b.is_boundary for b in eng.buckets.values()),
                        "rhs_routes": sorted({
@@ -4558,7 +4445,7 @@ def main(argv=None) -> int:
         paths[f"flux_api_{name.lower()}_f64"] = {
             kname: sum(r["launches"][name][kname]
                        for r in api["cases"].values())
-            for kname in kernel_wrappers()}
+            for kname in read_launches()}
 
     for name, r in lsh.items():
         paths["lshape_adaptive_se_f64" if name == "rt3"
@@ -4569,14 +4456,11 @@ def main(argv=None) -> int:
     # slice 4: weakly symmetric stress
     paths["stress_se_f32"] = stress["launches"]
     paths["elasticity_flow_f64"] = ela["launches"]
-    paths["stress_kkt_f64"] = {
-        kname: skkt["launches"][kname]
-        + sum(red["launches"][kname] for red in skkt["reduced"].values())
-        for kname in kernel_wrappers()}
+    paths["stress_kkt_f64"] = skkt["launches"]
     paths["cook_loop"] = {
         kname: sum(cook[name]["launches"][kname]
                    for name in ("demo", "long", "grouped"))
-        for kname in kernel_wrappers()}
+        for kname in read_launches()}
     # slice 5: multigrid and Biot
     paths["biot_bench_f32"] = biot["flux"]["launches"]
     paths["biot_bench_ws_f32"] = biot["ws"]["launches"]
@@ -4585,11 +4469,11 @@ def main(argv=None) -> int:
     dry_cases = shard["dryrun"]["cases"]
     paths["sharded_dryrun_f64"] = {
         kname: sum(rk["launches"].get(kname, 0) for c in dry_cases.values()
-                   for rk in c["ranks"]) for kname in kernel_wrappers()}
+                   for rk in c["ranks"]) for kname in read_launches()}
     paths["sharded_stress_f32"] = {
         kname: sum(rk["launches"][kname]
                    for rk in shard["full_width"]["ranks"])
-        for kname in kernel_wrappers()}
+        for kname in read_launches()}
     # slice 7: the bench's timed calls, one process per mode
     for mode, run in bench["runs"].items():
         paths[f"bench_{mode}"] = bench_launch_totals(run)
@@ -4621,8 +4505,7 @@ def main(argv=None) -> int:
                    "biot_bench_ws_f32": biot["ws"]["kernel_checks"],
                    "biot_flow_f64": bflow["kernel_checks"],
                    "bench_biot_128_f32": bench["biot_kernel_checks"]}
-    k3_stress_checks = (skkt["k3_checks"]
-                        + skkt["reduced"]["boundary"]["k3_checks"])
+    k3_stress_checks = skkt["k3_checks"]
     k3_rt3_checks = [c for r in ukkt["paths"].values()
                      for c in r["k3_checks"]]
     k3_rt4_checks = [c for r in rkkt["paths"].values()
@@ -4762,9 +4645,7 @@ def main(argv=None) -> int:
                for dt, r in ukkt["paths"].items()},
             **{f"kkt_rt4_unstructured_{dt}": r["k3_launches_by_route"]
                for dt, r in rkkt["paths"].items()},
-            "stress_kkt_f64": skkt["k3_launches_by_route"],
-            **{f"stress_reduced_{name}_f64": red["k3_launches_by_route"]
-               for name, red in skkt["reduced"].items()}},
+            "stress_kkt_f64": skkt["k3_launches_by_route"]},
         stress_operands=[{key: c[key] for key in (
             "D", "R", "X", "route", "max_rel_err")}
             for c in k3_stress_checks],

@@ -73,10 +73,7 @@ from .fem.multigrid import mesh_hierarchy
 from .fem.spaces import resolve_device
 from .mesh import unit_square
 from .models.biot import biot_bench_fields
-from .ops.lane_select import combine_gather, ds_combine_gather
-from .ops.load_moments import load_moments
-from .ops.reduced_step import reduced_step
-from .ops.patch_solve import batched_kkt_solve, batched_kkt_solve_bl
+from .ops import launches
 
 __all__ = ["main", "setup", "cli", "CHUNK", "CHUNK_MIXED"]
 
@@ -201,10 +198,7 @@ def _divergence_check(msh, k, x, d_proj0, d_rhs0, device):
 
 
 def _counts(engine) -> dict:
-    return {"K1": dict(batched_kkt_solve_bl.launches_by_route),
-            "K2": combine_gather.launches, "K3": batched_kkt_solve.launches,
-            "K4": ds_combine_gather.launches, "K5": load_moments.launches,
-            "K6": reduced_step.launches,
+    return {**launches(), "K1": launches(split=True)["K1"],
             "pivoted_solves": engine.pivoted_solves,
             "input_uploads": engine.input_uploads}
 
@@ -228,15 +222,13 @@ def _timed(call, engine, device, rounds, per_round):
         samples.append((time.perf_counter() - t0) * 1e3 / per_round)
     after = _counts(engine)
     calls = rounds * per_round
-    launches = {"K1": {rt: (n - before["K1"][rt]) / calls
-                       for rt, n in after["K1"].items()}}
-    for name in ("K2", "K3", "K4", "K5", "K6", "pivoted_solves",
-                 "input_uploads"):
-        launches[name] = (after[name] - before[name]) / calls
-    launches["input_bytes"] = engine.input_bytes
+    per_call = {name: {rt: (m - before[name][rt]) / calls
+                       for rt, m in n.items()} if name == "K1"
+                else (n - before[name]) / calls for name, n in after.items()}
+    per_call["input_bytes"] = engine.input_bytes
     peak = (torch.cuda.max_memory_allocated(device) / 2**30
             if device.type == "cuda" else None)
-    return x, samples, launches, peak
+    return x, samples, per_call, peak
 
 
 def setup(n=500, k=2, n_fields=1, stress=False, mixed=False, biot=False,

@@ -9,7 +9,7 @@
 // fused into the elimination, then back substitution.  The systems are the
 // KKT systems of RT4 on unstructured meshes (D = 130 / 156 / 182 / 208 /
 // 234, patches of 5-9 cells) and of RT3's 9- and 10-cell patches (D = 135 /
-// 150), which the reference pivots (engine.k3_takes stops at D = 110).
+// 150), which the reference pivots (its size rule stops at D = 110).
 //
 // What bounds it on the card.  In f64 no SM holds one of these systems:
 // [A | b] is 348 KB at D = 208, against 227 KB of shared memory a block and

@@ -1,5 +1,6 @@
 from .patches import PatchBucket, build_patches, bucket_dof_tables  # noqa: F401
-from .engine import EqlbEngine, reference_tensors  # noqa: F401
+from .engine import EqlbEngine  # noqa: F401
+from .semiexplicit import reference_tensors  # noqa: F401
 from .bcs import fluxbc, FluxBC, boundarydata, BoundaryData  # noqa: F401
 from .equilibrators import FluxEquilibrator, FluxEqlbEV, FluxEqlbSE  # noqa: F401
 from . import checks  # noqa: F401

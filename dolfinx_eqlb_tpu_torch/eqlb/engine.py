@@ -61,91 +61,33 @@ geometry caches inside ``eqlb.call``.
 
 from __future__ import annotations
 
-from contextlib import contextmanager
 from dataclasses import replace
-from functools import lru_cache
 
 import numpy as np
 import torch
 
-from ..elements.lagrange import dubiner_cached, lagrange_cached
-from ..elements.polynomials import legendre_shifted
-from ..elements.quadrature import gauss_interval, gauss_triangle
-from ..elements.rt import rt_cached
 from ..fem.spaces import FunctionSpace, resolve_device
+from ..ops import check_se_degree
 from ..ops.lane_select import combine_gather, ds_combine_gather
-from ..ops.load_moments import KERNEL_DEGREES as LOAD_MOMENTS_DEGREES
 from ..ops.patch_solve import (
     batched_kkt_solve, batched_kkt_solve_bl, k3_admits,
 )
+from ..utils.precision import full_f32_matmul
 from ..utils.profiling import annotate, span
 from .patches import PatchBucket, bucket_dof_tables
 from .semiexplicit import (
-    boundary_ess_bl, combo_tensors, mass_matrices_bl, reduced_basis,
-    reduced_system_bl, se_host_tables, se_static, solve_bucket_semiexplicit,
+    _HAT_GRADS, boundary_ess_bl, combo_tensors, mass_matrices_bl,
+    reduced_basis, reduced_system_bl, reference_tensors, se_host_tables,
+    se_static, solve_bucket_semiexplicit,
 )
 from .stress import (
     _weak_symmetry_bucket_kkt, bsym_combo_tensors, build_stress_cache,
     weak_symmetry_bucket_bl,
 )
 
-__all__ = ["EqlbEngine", "k3_admits", "k3_takes", "reference_tensors"]
-
-
-_HAT_GRADS = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
+__all__ = ["EqlbEngine"]
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
-
-
-@lru_cache(maxsize=None)
-def reference_tensors(k: int):
-    """Constant reference-cell tensors for RT_k / DG_{k-1} / P1-hat."""
-    rt = rt_cached(k)
-    dub = dubiner_cached(k - 1)
-    hat = lagrange_cached(1)
-    pts, w = gauss_triangle(2 * k + 2)
-    phi = rt.tabulate(pts)  # (nrt, 2, nq)
-    dphi = rt.tabulate_div(pts)  # (nrt, nq)
-    q = dub.tabulate(pts)  # (ndg, nq)
-    lam = hat.tabulate(pts)  # (3, nq)
-
-    Mhat = np.einsum("x,iax,jbx->abij", w, phi, phi)
-    Dhat = np.einsum("x,ix,px->ip", w, dphi, q)
-    Rhat = np.einsum("x,lx,mx,iax->lmai", w, lam, q, phi)
-    Rlam = np.einsum("x,lx,iax->lai", w, lam, phi)  # weak-symmetry coupling
-    T3 = np.einsum("x,lx,mx,px->lmp", w, lam, q, q)
-    cpen = np.einsum("x,px->p", w, q)  # only the constant mode is nonzero
-
-    # hat-weighted Legendre products on [0,1] for boundary-spoke dofs:
-    # W[end, j, m] = int lin_end(s) P~_j(s) P~_m(s) ds, lin_0 = 1-s, lin_1 = s
-    s, ws = gauss_interval(k + 2)
-    leg = legendre_shifted(k - 1)
-    legv = np.array([np.polyval(leg[m, ::-1], s) for m in range(k)])
-    Wend = np.stack(
-        [
-            np.einsum("x,jx,mx->jm", ws * (1.0 - s), legv, legv),
-            np.einsum("x,jx,mx->jm", ws * s, legv, legv),
-        ]
-    )
-    return dict(
-        Mhat=Mhat, Dhat=Dhat, Rhat=Rhat, Rlam=Rlam, T3=T3, cpen=cpen, Wend=Wend
-    )
-
-
-@contextmanager
-def _full_f32_matmul():
-    """Full f32 contractions are load-bearing: a reduced-precision pass put
-    a 2.7e-3 relative error on the dofs in the reference.  Pin full f32
-    (no TF32) for the duration, and restore the caller's settings."""
-    prec = torch.get_float32_matmul_precision()
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.set_float32_matmul_precision(prec)
 
 
 def _chunk_buckets(buckets, C: int):
@@ -165,16 +107,6 @@ def _chunk_buckets(buckets, C: int):
                 exit_loc=b.exit_loc[s],
             )
     return split
-
-
-def k3_takes(D: int) -> bool:
-    """The reference's size rule for its batch-major Pallas solve (two
-    (D, D, 128) f32 tiles in a 12 MiB budget of the TPU's VMEM: D <= 110).
-    ``_dense_solve`` keeps it, for the reduced weak-symmetry systems
-    (``stress.weak_symmetry_bucket_reduced``), which are not safe without
-    pivoting; the flux KKT stage follows the port's own rule,
-    ``ops.patch_solve.k3_admits`` (exported here beside it)."""
-    return D * D * 128 * 4 * 2 < 12 * 2**20
 
 
 # per-patch host tables: the rows that ``_pad_patch_axis`` repeats
@@ -212,12 +144,12 @@ class EqlbEngine:
 
     * ``mode``: "semiexplicit" (default) or "kkt" (see the module
       docstring), as in the reference.  On the card the semi-explicit
-      mode takes RT degree 1-4, those of its load-moments and
-      reduced-step kernels (K5, ``ops.load_moments``; K6,
-      ``ops.reduced_step``); a call at another degree raises before any
-      work.
+      mode takes the RT degrees its load-moments and reduced-step kernels
+      are built for (K5, ``ops.load_moments``; K6, ``ops.reduced_step``;
+      ``ops._build.SE_KERNEL_DEGREES``); a call at another degree raises
+      before any work.
     * ``solver``: "kernel" (default; K1 for the batch-last solves, K3 for
-      the KKT systems up to the reference's size rule), "torch"
+      the KKT systems ``ops.patch_solve.k3_admits`` admits), "torch"
       (``torch.linalg.solve``) or "kernel_mixed" (f64 engines: K1 in f32
       plus ``mixed_refine_steps`` f64 residual corrections; KKT systems go
       to ``torch.linalg.solve``) — the reference's "pallas" / "xla" /
@@ -423,7 +355,7 @@ class EqlbEngine:
         refd["Wend"] = f(self.ref["Wend"])
         refd["BsymC"] = f(bsym_combo_tensors(k))
         dev = {}
-        with _full_f32_matmul():
+        with full_f32_matmul():
             for key in sorted(self.tables.keys()):
                 t = self.tables[key]
                 b = self.buckets[key]
@@ -531,7 +463,7 @@ class EqlbEngine:
         dev, refd = self._device_tables()
         if any("Bsym_bl" in d for d in dev.values()):
             return
-        with _full_f32_matmul():
+        with full_f32_matmul():
             for key in sorted(self.tables.keys()):
                 dev[key].update(build_stress_cache(self, key, dev[key], refd))
 
@@ -679,7 +611,7 @@ class EqlbEngine:
                                  dtype=bool)
                     m[:b.npatches] = np.isin(b.nodes, ws_skip_nodes)
                     ws_skip[key] = torch.as_tensor(m, device=self.device)
-            with _full_f32_matmul():
+            with full_f32_matmul():
                 if self.mode == "kkt":
                     flat = self._bucket_solutions_kkt(dp, dr, fk, bv,
                                                       weak_symmetry)
@@ -721,14 +653,11 @@ class EqlbEngine:
         if self.combine == "ds" and self.dtype != torch.float64:
             raise ValueError("combine='ds' (double-single) needs an f64 "
                              f"engine, this one is {self.dtype}")
-        if (self.mode == "semiexplicit" and self.device.type == "cuda"
-                and self.k not in LOAD_MOMENTS_DEGREES):
-            raise ValueError(
-                f"the semi-explicit mode on the card takes RT degree "
-                f"{LOAD_MOMENTS_DEGREES[0]}-{LOAD_MOMENTS_DEGREES[-1]} (its "
-                f"load-moments and reduced-step kernels are built for "
-                f"those), not {self.k}; "
-                f"run degree {self.k} with device='cpu' or mode='kkt'")
+        if self.mode == "semiexplicit" and self.device.type == "cuda":
+            check_se_degree(
+                self.k, "the semi-explicit mode on the card",
+                f" (its kernels K5 and K6 are built for those); run degree "
+                f"{self.k} with device='cpu' or mode='kkt'")
 
     def _bucket_solutions(self, dpT, drT, facet_kind, bvals,
                           weak_symmetry=False, ws_skip=None):
@@ -827,15 +756,6 @@ class EqlbEngine:
         self.pivoted_solves += 1
         x = torch.linalg.solve(A.permute(2, 0, 1), b.permute(2, 0, 1))
         return x.permute(1, 2, 0)
-
-    def _dense_solve(self, A, b):
-        """Batch-major solve by the reference's size rule: A (..., P, D, D),
-        b (..., P, D, R).  ``solver="kernel"`` takes K3 for the sizes
-        ``k3_takes`` admits; the rest go to ``torch.linalg.solve``, as in
-        the reference."""
-        if self.solver == "kernel" and k3_takes(A.shape[-1]):
-            return batched_kkt_solve(A, b)
-        return torch.linalg.solve(A, b)
 
     def _kkt_solve(self, A, b):
         """Batch-major solve of the flux KKT systems by the port's size

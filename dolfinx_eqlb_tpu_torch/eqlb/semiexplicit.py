@@ -33,11 +33,16 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..ops.load_moments import load_moments
-from ..ops.reduced_step import _bx, reduced_step
+from ..elements.lagrange import dubiner_cached, lagrange_cached
+from ..elements.polynomials import legendre_shifted
+from ..elements.quadrature import gauss_interval, gauss_triangle
+from ..elements.rt import rt_cached
+from ..ops.load_moments import fold_rhs, load_moments
+from ..ops.reduced_step import reduced_step
 from ..utils.profiling import annotate, span
 
 __all__ = [
+    "reference_tensors",
     "se_static",
     "se_host_tables",
     "combo_tensors",
@@ -46,14 +51,48 @@ __all__ = [
 ]
 
 
+_HAT_GRADS = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
+
+
+@lru_cache(maxsize=None)
+def reference_tensors(k: int):
+    """Constant reference-cell tensors for RT_k / DG_{k-1} / P1-hat."""
+    rt = rt_cached(k)
+    dub = dubiner_cached(k - 1)
+    hat = lagrange_cached(1)
+    pts, w = gauss_triangle(2 * k + 2)
+    phi = rt.tabulate(pts)  # (nrt, 2, nq)
+    dphi = rt.tabulate_div(pts)  # (nrt, nq)
+    q = dub.tabulate(pts)  # (ndg, nq)
+    lam = hat.tabulate(pts)  # (3, nq)
+
+    Mhat = np.einsum("x,iax,jbx->abij", w, phi, phi)
+    Dhat = np.einsum("x,ix,px->ip", w, dphi, q)
+    Rhat = np.einsum("x,lx,mx,iax->lmai", w, lam, q, phi)
+    Rlam = np.einsum("x,lx,iax->lai", w, lam, phi)  # weak-symmetry coupling
+    T3 = np.einsum("x,lx,mx,px->lmp", w, lam, q, q)
+    cpen = np.einsum("x,px->p", w, q)  # only the constant mode is nonzero
+
+    # hat-weighted Legendre products on [0,1] for boundary-spoke dofs:
+    # W[end, j, m] = int lin_end(s) P~_j(s) P~_m(s) ds, lin_0 = 1-s, lin_1 = s
+    s, ws = gauss_interval(k + 2)
+    leg = legendre_shifted(k - 1)
+    legv = np.array([np.polyval(leg[m, ::-1], s) for m in range(k)])
+    Wend = np.stack(
+        [
+            np.einsum("x,jx,mx->jm", ws * (1.0 - s), legv, legv),
+            np.einsum("x,jx,mx->jm", ws * s, legv, legv),
+        ]
+    )
+    return dict(
+        Mhat=Mhat, Dhat=Dhat, Rhat=Rhat, Rlam=Rlam, T3=T3, cpen=cpen, Wend=Wend
+    )
+
+
 @lru_cache(maxsize=None)
 def _div_structure(k: int):
     """(S (3,), divdiag (ndiv,)): the nonzero divergence moments of the
     hierarchic RT_k basis (see module docstring; asserted dense in tests)."""
-    from ..elements.lagrange import dubiner_cached
-    from ..elements.quadrature import gauss_triangle
-    from ..elements.rt import rt_cached
-
     rt = rt_cached(k)
     dub = dubiner_cached(k - 1)
     pts, w = gauss_triangle(2 * k + 2)
@@ -81,8 +120,6 @@ def combo_tensors(k: int):
     """Reference tensors pre-permuted for each of the 6 (lnode, orientation)
     combos — replaces all data-dependent dof-permutation gathers with a
     one-hot contraction."""
-    from .engine import reference_tensors, _HAT_GRADS
-
     ref = reference_tensors(k)
     nkeep = 2 * k + k * (k - 1)
     ndg = k * (k + 1) // 2
@@ -272,9 +309,9 @@ def particular_bl(engine, key, Fq, ess, hatvals, dv):
     n_rhs = X // P
     nflux = ns * k + n * kk1
 
-    sdet = _bx(torch.sign(dv["detJ_bl"]), n_rhs)  # (n, X)
-    gamma = _bx(dv["gamma_bl"], n_rhs)  # (n, X)
-    cum = _bx(dv["cumalpha_bl"], n_rhs)  # (ns, X)
+    sdet = fold_rhs(torch.sign(dv["detJ_bl"]), n_rhs)  # (n, X)
+    gamma = fold_rhs(dv["gamma_bl"], n_rhs)  # (n, X)
+    cum = fold_rhs(dv["cumalpha_bl"], n_rhs)  # (ns, X)
     sp = Fq.new_zeros((nflux, X))
 
     # step 1a: divergence cell dofs
@@ -394,13 +431,14 @@ def solve_bucket_semiexplicit(engine, key, dprT, facet_kind, bvals, dv, refd):
                 free = z_mask_x(engine, key, ess)  # (Dz, X)
                 ff = free[:, None] & free[None, :]  # (Dz, Dz, X)
                 eye = torch.eye(Dz, dtype=Mc.dtype, device=Mc.device)
-                Ar = torch.where(ff, _bx(dv["Az_bl"], n_rhs), 0.0) \
+                Ar = torch.where(ff, fold_rhs(dv["Az_bl"], n_rhs), 0.0) \
                     + eye[:, :, None] * (~free[None])
                 br = torch.where(free, bz, 0.0)
                 y = engine._dense_solve_bl(Ar, br[:, None, :])[:, 0]  # (Dz, X)
                 if Dz > 1:
                     sp.index_add_(0, dv["sel"], y[1:])
-                sp[0: ns * k: k] += y[0][None] * _bx(dv["cumalpha_bl"], n_rhs)
+                sp[0: ns * k: k] += y[0][None] * fold_rhs(dv["cumalpha_bl"],
+                                                          n_rhs)
             else:
                 # geometry-only system with a cached explicit inverse, which
                 # the reduced step applied

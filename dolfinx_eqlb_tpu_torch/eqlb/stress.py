@@ -10,8 +10,8 @@ patch-local weak-symmetry constraint
                       for every continuous-P1 hat on the patch,
 
 with a scalar multiplier relaxing the constant-mode constraint (reference
-``se/stressmin_kernel.hpp:118-236``).  Three formulations, as in the
-reference:
+``se/stressmin_kernel.hpp:118-236``).  Two formulations, those the
+reference's fused path runs:
 
 * the semi-explicit engine's path, batch-last with geometry caches
   (``build_stress_cache`` once per engine, ``weak_symmetry_bucket_bl`` per
@@ -19,10 +19,6 @@ reference:
   patch system has D = 2 Dz + C + 1 unknowns; interior buckets apply the
   cached constraint columns of its inverse, boundary buckets mask and
   solve per call;
-* ``weak_symmetry_bucket_reduced``, the same reduced system assembled per
-  call, batch-major, and solved through the engine's ``_dense_solve`` (K3
-  when the size rule admits it); the reference reaches it only from its
-  unfused path;
 * ``_weak_symmetry_bucket_kkt``, the full KKT system of the KKT mode.
 
 The weak-symmetry systems are indefinite, and symmetric patches (the
@@ -38,11 +34,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .semiexplicit import _onehot, _perm_q, reduced_system_bl, z_mask_bl
+from .semiexplicit import _onehot, _perm_q, reference_tensors, z_mask_bl
 
 __all__ = ["bsym_combo_tensors", "build_stress_cache",
-           "weak_symmetry_bucket", "weak_symmetry_bucket_bl",
-           "weak_symmetry_bucket_reduced"]
+           "weak_symmetry_bucket_bl"]
 
 
 def _index(a, device) -> torch.Tensor:
@@ -65,17 +60,6 @@ def _bsym_canonical(engine, key, dv, refd):
     return Bsym * (sdet[..., None, None, None] * signs[:, :, None, None, :])
 
 
-def weak_symmetry_bucket(engine, key, sol2, facet_kind2, d_proj2, dv, refd):
-    """(2, P, nflux) corrections of one bucket by the engine's mode: the
-    reduced system in semi-explicit mode, the full KKT system in KKT mode.
-    ``dv`` / ``refd`` hold the tables that formulation reads."""
-    if engine.mode == "semiexplicit":
-        return weak_symmetry_bucket_reduced(
-            engine, key, sol2, facet_kind2, d_proj2, dv, refd)
-    return _weak_symmetry_bucket_kkt(
-        engine, key, sol2, facet_kind2, d_proj2, dv, refd)
-
-
 # ---------------------------------------------------------------------------
 # batch-last reduced stress path with geometry caches
 # ---------------------------------------------------------------------------
@@ -87,7 +71,6 @@ def bsym_combo_tensors(k: int) -> np.ndarray:
     2 = exit-spoke end) maps to a local vertex determined by the combo, and
     the canonical dof permutation is the combo's."""
     from ..elements.quadrature import LOCAL_EDGE_VERTICES as LOC
-    from .engine import reference_tensors
 
     Rlam = reference_tensors(k)["Rlam"]  # (3, 2, nrt)
     nkeep = 2 * k + k * (k - 1)
@@ -297,107 +280,6 @@ def _assemble_flat(A, positions, values):
     """Add per-cell blocks into the flattened batch-major systems A
     (P, D * D): ``positions`` flat indices (NumPy), ``values`` (P, len)."""
     A.index_add_(1, _index(positions, A.device), values)
-
-
-def weak_symmetry_bucket_reduced(engine, key, sol2, facet_kind2, d_proj2,
-                                 dv=None, refd=None):
-    """Reduced weak-symmetry correction, batch-major: both stress rows'
-    corrections live in the explicit divergence-free patch basis Z
-    (``eqlb.semiexplicit``), so the per-patch system is
-
-        [ A_z        (B1 Z)^T ] [y'_0]   [ 0 ]
-        [      A_z   (B2 Z)^T ] [y'_1] = [ 0 ]
-        [ B1 Z B2 Z     ch    ] [ mu ]   [ -B1 c0 - B2 c1 ]
-
-    of dimension 2 Dz + (1 + ns) + 1, assembled per call and solved through
-    ``engine._dense_solve`` (K3 under ``solver="kernel"`` where the size
-    rule admits it, pivot-free).
-
-    sol2 (2, P, nflux), facet_kind2 (2, nf), d_proj2 (2, nc, 2, ndg).  ``dv``
-    / ``refd`` default to the engine's semi-explicit and KKT-mode tables of
-    the bucket together; returns (2, P, nflux) corrections."""
-    if dv is None:
-        dev, rf = engine._device_tables()
-        kdev, krf = engine._kkt_tables()
-        dv, refd = {**dev[key], **kdev[key]}, {**rf, **krf}
-    b = engine.buckets[key]
-    t = engine.tables[key]
-    st = engine.se_static[key]
-    k = engine.k
-    n, ns = b.ncells, b.nspokes
-    P = dv["J"].shape[0]
-    Dz = st["Dz"]
-    C = t["np1"]
-    D = 2 * Dz + C + 1
-    ilc = 2 * Dz + C
-    nflux = ns * k + n * engine.V.element.ndofs_cell
-    devc = sol2.device
-
-    zeros2 = torch.zeros_like(d_proj2)
-    Mc, _, _, _ = engine._element_data(d_proj2, zeros2[..., 0, :], dv, refd)
-    Az = reduced_system_bl(engine, key, Mc.movedim(0, -1), dv)
-    Az = Az.movedim(-1, 0)  # (P, Dz, Dz)
-    Bsym = _bsym_canonical(engine, key, dv, refd)  # (P, n, 3, 2, nkeep)
-    adet = dv["detJ"].abs()
-
-    A = Az.new_zeros((P, D, D))
-    A[:, :Dz, :Dz] = Az
-    A[:, Dz: 2 * Dz, Dz: 2 * Dz] = Az
-    Af = A.view(P, D * D)
-    rhs = Az.new_zeros((P, D))
-
-    U = st["uslots"]
-    d0 = dv["cumalpha_bl"].T  # (P, ns)
-    pidx = dv["patch_idx"]
-    pos = _constraint_positions(engine, key, D, 2 * Dz, (0, Dz))
-    for i, (rows, per_row, hpos, hposT) in enumerate(pos):
-        B1 = Bsym[:, i, :, 1, :]  # (P, 3, nkeep)
-        B2 = -Bsym[:, i, :, 0, :]
-        wen, wex = d0[:, i], d0[:, st["exit_idx"][i]]
-        for (p0, p0T, pu, puT), Bi in zip(per_row, (B1, B2)):
-            bi0 = Bi[:, :, 0] * wen[:, None] + Bi[:, :, k] * wex[:, None]
-            _assemble_flat(Af, p0, bi0)
-            _assemble_flat(Af, p0T, bi0)
-            if len(U):
-                BU = Bi[:, :, U]  # (P, 3, nu)
-                _assemble_flat(Af, pu, BU.reshape(P, -1))
-                _assemble_flat(Af, puT, BU.transpose(1, 2).reshape(P, -1))
-        # multiplier column: int hat_h = |detJ| / 6 per touched node
-        hi = (adet[:, i, None] / 6.0).expand(P, 3)
-        _assemble_flat(Af, hpos, hi)
-        _assemble_flat(Af, hposT, hi)
-        # constraint data from the equilibrated stress rows
-        c0 = sol2[0][:, pidx[i]]
-        c1 = sol2[1][:, pidx[i]]
-        rhs.index_add_(1, _index(rows, devc),
-                       -torch.einsum("phi,pi->ph", B1, c0)
-                       - torch.einsum("phi,pi->ph", B2, c1))
-
-    # --- essential masking + multiplier activation ---------------------------
-    free = torch.ones((P, D), dtype=torch.bool, device=devc)
-    if b.is_boundary:
-        ess = facet_kind2[:, dv["bspokes"]] == 2  # (2, P, 2)
-        fr_bl = z_mask_bl(engine, key, ess.movedim(1, -1))  # (2, Dz, P)
-        for row in (0, 1):
-            free[:, row * Dz: (row + 1) * Dz] = fr_bl[row].T
-        lam_on = ess.all(dim=2).all(dim=0)  # (P,)
-    else:
-        lam_on = torch.ones((P,), dtype=torch.bool, device=devc)
-    free[:, ilc] = lam_on
-
-    ff = free[:, :, None] & free[:, None, :]
-    eye = torch.eye(D, dtype=A.dtype, device=devc)
-    Ar = torch.where(ff, A, 0.0) + eye * (~free)[..., None]
-    br = torch.where(free, rhs, 0.0)
-    y = engine._dense_solve(Ar, br[..., None])[..., 0]  # (P, D)
-
-    delta = y.new_zeros((2, P, nflux))
-    for row in (0, 1):
-        yr = y[:, row * Dz: (row + 1) * Dz]
-        if Dz > 1:
-            delta[row].index_add_(1, dv["sel"], yr[:, 1:])
-        delta[row, :, 0: ns * k: k] += yr[:, 0:1] * d0
-    return delta
 
 
 def _weak_symmetry_bucket_kkt(engine, key, sol2, facet_kind2, d_proj2, dv,

@@ -36,6 +36,7 @@ import torch
 
 from ..elements.lagrange import lagrange_cached
 from ..elements.quadrature import gauss_triangle
+from ..utils.precision import full_f32_matmul
 from .spaces import mesh_space, resolve_device
 
 __all__ = [
@@ -156,9 +157,7 @@ def _full_f32(dtype):
     precision would change the preconditioner between applications."""
     if dtype != torch.float32:
         return nullcontext()
-    from ..eqlb.engine import _full_f32_matmul
-
-    return _full_f32_matmul()
+    return full_f32_matmul()
 
 
 class GeometricMG:

@@ -10,7 +10,12 @@ on a machine without nvcc or a card.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()`` as an int; :func:`check` raises on a
-non-zero code.
+non-zero code.  The wrappers launch through :func:`launch`, which also
+counts each launch by kernel (``K1``-``K6``) and, where a kernel has them,
+by route or epilogue: a wrapper registers its kernel at import
+(:func:`count_launches`), and :func:`launches` / :func:`reset_launches`
+read and zero every count at once.  ``SE_KERNEL_DEGREES`` is the one rule
+for the RT degrees the semi-explicit stage's kernels take.
 """
 
 from __future__ import annotations
@@ -24,7 +29,11 @@ import subprocess
 import threading
 import time
 
-__all__ = ["library", "build_info", "check"]
+import torch
+
+__all__ = ["library", "build_info", "check", "launch", "count_launches",
+           "launches", "reset_launches", "SE_KERNEL_DEGREES",
+           "check_se_degree"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -35,6 +44,17 @@ _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _lock = threading.Lock()
 _lib = None
 _info: dict = {}
+# symbol name -> its ctypes function, filled when the library loads
+_symbols: dict = {}
+# kernel ("K1".."K6") -> its launches by split: K1's and K3's routes, K6's
+# epilogues, or the one split None of a kernel counted whole
+_launches: dict[str, dict] = {}
+
+# the RT degrees the semi-explicit stage's kernels (K5, K6) are built for:
+# past k = 4 K5's reference tensors outgrow a block's static shared
+# memory.  The degree switches of csrc/load_moments.cu and
+# csrc/reduced_step.cu instantiate the same k.
+SE_KERNEL_DEGREES = (1, 2, 3, 4)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -156,10 +176,12 @@ def library():
         built = not os.path.exists(path)
         log = _compile(srcs, path) if built else ""
         lib = ctypes.CDLL(path)
+        symbols = {}
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+            fn = symbols[name] = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        _symbols.update(symbols)
         _info.update(path=path, built=built,
                      seconds=time.perf_counter() - t0, log=log)
         _lib = lib
@@ -175,3 +197,46 @@ def build_info() -> dict:
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def launch(kernel: str, symbol: str, device, *args, split=None) -> None:
+    """Call the library's ``symbol`` with ``args`` and the current stream of
+    ``device`` appended, raise on a non-zero code, and count one launch of
+    ``kernel`` (under ``split``, its route or epilogue)."""
+    if not _symbols:
+        library()
+    with torch.cuda.device(device):
+        code = _symbols[symbol](*args, torch.cuda.current_stream().cuda_stream)
+    check(code, symbol)
+    _launches[kernel][split] += 1
+
+
+def count_launches(kernel: str, splits=(None,)) -> None:
+    """Register ``kernel``'s launch count, split by ``splits`` (routes or
+    epilogues; a kernel counted whole has none)."""
+    _launches[kernel] = dict.fromkeys(splits, 0)
+
+
+def launches(split: bool = False) -> dict:
+    """Every registered kernel's launches since the last reset: kernel ->
+    total; with ``split``, kernel -> {split: launches} for the kernels
+    counted by route or epilogue."""
+    counts = sorted(_launches.items())
+    if split:
+        return {k: dict(c) for k, c in counts if None not in c}
+    return {k: sum(c.values()) for k, c in counts}
+
+
+def reset_launches() -> None:
+    """Zero every registered kernel's launch counts."""
+    for counts in _launches.values():
+        for s in counts:
+            counts[s] = 0
+
+
+def check_se_degree(k: int, what: str, hint: str = "") -> None:
+    """Raise ValueError unless ``SE_KERNEL_DEGREES`` holds RT degree ``k``;
+    the message names ``what`` refuses it, then ``hint``."""
+    if k not in SE_KERNEL_DEGREES:
+        raise ValueError(f"{what} takes RT degree {SE_KERNEL_DEGREES[0]}-"
+                         f"{SE_KERNEL_DEGREES[-1]}, not {k}{hint}")

@@ -33,6 +33,8 @@ __all__ = ["combine_gather", "combine_gather_plain", "ds_combine_gather",
 
 _FUNCS = {torch.float32: "eqlb_combine_gather_f32",
           torch.float64: "eqlb_combine_gather_f64"}
+_build.count_launches("K2")
+_build.count_launches("K4")
 
 
 def combine_gather_plain(flat: torch.Tensor, src: torch.Tensor,
@@ -63,17 +65,14 @@ def _check_tables(flat, src, nfk, dtypes):
         raise ValueError(f"unsupported device {flat.device}")
 
 
-def _launch(name, flat, src, nfk):
+def _launch(kernel, name, flat, src, nfk):
     R, L = flat.shape
     ndofs = src.shape[0]
     out = torch.empty((R, ndofs), dtype=flat.dtype, device=flat.device)
     if R == 0 or ndofs == 0:
         return out
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        fn = getattr(_build.library(), name)
-        _build.check(fn(flat.data_ptr(), src.data_ptr(), out.data_ptr(),
-                        R, L, ndofs, nfk, stream), name)
+    _build.launch(kernel, name, flat.device, flat.data_ptr(), src.data_ptr(),
+                  out.data_ptr(), R, L, ndofs, nfk)
     return out
 
 
@@ -84,18 +83,13 @@ def combine_gather(flat: torch.Tensor, src: torch.Tensor,
     facet dofs (2 contributors; the rest have 3) -> out (R, ndofs).
 
     CPU tensors take the plain version; CUDA tensors launch the K2 kernel
-    (``combine_gather.launches`` counts the launches).  The kernel does not
-    check the index range (that would cost a device sync per call): callers
-    build ``src`` on the host and check it there."""
+    (counted as "K2", ``ops.launches``).  The kernel does not check the
+    index range (that would cost a device sync per call): callers build
+    ``src`` on the host and check it there."""
     _check_tables(flat, src, nfk, _FUNCS)
     if flat.device.type == "cpu":
         return combine_gather_plain(flat, src, nfk)
-    out = _launch(_FUNCS[flat.dtype], flat, src, nfk)
-    combine_gather.launches += 1
-    return out
-
-
-combine_gather.launches = 0
+    return _launch("K2", _FUNCS[flat.dtype], flat, src, nfk)
 
 
 def _split_ds(v: torch.Tensor):
@@ -128,13 +122,8 @@ def ds_combine_gather(flat: torch.Tensor, src: torch.Tensor,
     takes it (see ``ds_combine_gather_plain``).
 
     CPU tensors take the plain version; CUDA tensors launch the K4 kernel
-    (``ds_combine_gather.launches`` counts the launches)."""
+    (counted as "K4", ``ops.launches``)."""
     _check_tables(flat, src, nfk, (torch.float64,))
     if flat.device.type == "cpu":
         return ds_combine_gather_plain(flat, src, nfk)
-    out = _launch("eqlb_ds_combine_gather_f64", flat, src, nfk)
-    ds_combine_gather.launches += 1
-    return out
-
-
-ds_combine_gather.launches = 0
+    return _launch("K4", "eqlb_ds_combine_gather_f64", flat, src, nfk)

@@ -18,19 +18,38 @@ order than the einsums, so the two agree to rounding, not bitwise.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..utils import profiling
 from . import _build
 
-__all__ = ["KERNEL_DEGREES", "load_moments", "load_moments_plain"]
+__all__ = ["fold_rhs", "load_moments", "load_moments_plain"]
 
 _FUNCS = {torch.float32: "eqlb_load_moments_f32",
           torch.float64: "eqlb_load_moments_f64"}
-# the RT degrees the kernel is built for: past k = 4 its reference tensors
-# outgrow a block's static shared memory
-KERNEL_DEGREES = (1, 2, 3, 4)
-_KERNEL_NDG = {k * (k + 1) // 2: k for k in KERNEL_DEGREES}
+_build.count_launches("K5")
+
+
+def fold_rhs(a: torch.Tensor, n_rhs: int) -> torch.Tensor:
+    """Broadcast a per-patch tensor (..., P) along the folded RHS axis ->
+    (..., n_rhs * P), RHS-major (a copy when n_rhs > 1)."""
+    if n_rhs == 1:
+        return a
+    P = a.shape[-1]
+    return a.unsqueeze(-2).expand(*a.shape[:-1], n_rhs, P).reshape(
+        *a.shape[:-1], n_rhs * P)
+
+
+def _kernel_degree(ndg: int) -> int:
+    """The RT degree k of ndg = k (k + 1) / 2 DG moments, if the kernel is
+    built for it (``_build.SE_KERNEL_DEGREES``); else ValueError."""
+    k = (math.isqrt(1 + 8 * ndg) - 1) // 2
+    if k * (k + 1) // 2 != ndg:
+        raise ValueError(f"ndg = {ndg} is no RT degree's k (k + 1) / 2")
+    _build.check_se_degree(k, "the load-moments kernel (K5)")
+    return k
 
 
 def load_moments_plain(dprT, cells, combo, J, K, signs, detJ, RhatC, T3C,
@@ -41,18 +60,12 @@ def load_moments_plain(dprT, cells, combo, J, K, signs, detJ, RhatC, T3C,
     n, P = cells.shape
     dt = dprT.dtype
 
-    def bx(a):  # (..., P) -> (..., n_rhs * P), RHS-major
-        if n_rhs == 1:
-            return a
-        return a.unsqueeze(-2).expand(*a.shape[:-1], n_rhs, P).reshape(
-            *a.shape[:-1], n_rhs * P)
-
-    J = bx(J)  # (n, 2, 2, X)
-    K = bx(K)
-    signs = bx(signs)  # (n, nkeep, X)
-    detJ = bx(detJ)  # (n, X)
-    W = (bx(combo).unsqueeze(1) == torch.arange(6, device=combo.device).view(
-        1, 6, 1)).to(dt)  # the combo's one-hot (n, 6, X)
+    J = fold_rhs(J, n_rhs)  # (n, 2, 2, X)
+    K = fold_rhs(K, n_rhs)
+    signs = fold_rhs(signs, n_rhs)  # (n, nkeep, X)
+    detJ = fold_rhs(detJ, n_rhs)  # (n, X)
+    W = (fold_rhs(combo, n_rhs).unsqueeze(1) == torch.arange(
+        6, device=combo.device).view(1, 6, 1)).to(dt)  # one-hot (n, 6, X)
 
     g = dprT.reshape(n_rhs * 3 * ndg, nc).index_select(1, cells.reshape(-1))
     g = g.reshape(n_rhs, 3, ndg, n, P).permute(1, 2, 3, 0, 4).reshape(
@@ -115,19 +128,17 @@ def load_moments(dprT, cells, combo, J, K, signs, detJ, RhatC, T3C, hatgC):
     tensors by combo (``semiexplicit.combo_tensors``).
 
     CPU tensors take the plain version; CUDA tensors launch the K5 kernel
-    (k in ``KERNEL_DEGREES``, else ValueError; ``load_moments.launches``
-    counts the launches).  The kernel
-    does not check the cell and combo ranges (that would cost a device
-    sync per call): the engine builds both on the host."""
+    (k in ``_build.SE_KERNEL_DEGREES``, else ValueError; counted as "K5",
+    ``ops.launches``).  The kernel does not check the cell and combo ranges
+    (that would cost a device sync per call): the engine builds both on the
+    host."""
     _check(dprT, cells, combo, J, K, signs, detJ, RhatC, T3C, hatgC)
     if dprT.device.type == "cpu":
         profiling.annotate(route="plain")
         return load_moments_plain(dprT, cells, combo, J, K, signs, detJ,
                                   RhatC, T3C, hatgC)
     n_rhs, _, ndg, nc = dprT.shape
-    k = _KERNEL_NDG.get(ndg)
-    if k is None:
-        raise ValueError(f"the kernel takes k = 1..4, not ndg = {ndg}")
+    k = _kernel_degree(ndg)
     n, P = cells.shape
     profiling.annotate(route="kernel")
     X = n_rhs * P
@@ -135,15 +146,7 @@ def load_moments(dprT, cells, combo, J, K, signs, detJ, RhatC, T3C, hatgC):
     Fq = torch.empty((n, ndg, X), dtype=dprT.dtype, device=dprT.device)
     if n == 0 or X == 0:
         return Fv, Fq
-    name = _FUNCS[dprT.dtype]
-    with torch.cuda.device(dprT.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        fn = getattr(_build.library(), name)
-        _build.check(fn(*(t.data_ptr() for t in (
-            dprT, cells, combo, J, K, signs, detJ, RhatC, T3C, hatgC, Fv,
-            Fq)), k, n_rhs, nc, n, P, stream), name)
-    load_moments.launches += 1
+    _build.launch("K5", _FUNCS[dprT.dtype], dprT.device, *(
+        t.data_ptr() for t in (dprT, cells, combo, J, K, signs, detJ, RhatC,
+                               T3C, hatgC, Fv, Fq)), k, n_rhs, nc, n, P)
     return Fv, Fq
-
-
-load_moments.launches = 0

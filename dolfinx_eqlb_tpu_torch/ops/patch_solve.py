@@ -139,6 +139,8 @@ K3_WIDE_TILES = {"wide5x5": (5, 5), "wide6x6": (6, 6), "wide7x7": (7, 7),
 K3_CLUSTER_TILES = {"cluster2x5x10": (2, 5, 10), "cluster4x3x12": (4, 3, 12),
                     "cluster4x4x16": (4, 4, 16)}
 K3_ROUTES = (*K3_REG_TILES, *K3_WIDE_TILES, *K3_CLUSTER_TILES, "shared")
+_build.count_launches("K1", K1_ROUTES)
+_build.count_launches("K3", K3_ROUTES)
 # every tiled route, smallest first, as (thread rows a system, MR, MC): 16
 # thread columns in all of them
 _K3_TILES = {**{rt: (8, *t) for rt, t in K3_REG_TILES.items()},
@@ -156,8 +158,7 @@ def k3_admits(D: int, R: int) -> bool:
     """The port's size rule for K3, which the engine's flux KKT stage
     follows: whether a tiled route (register, wide or cluster) covers
     D x D systems with R right-hand sides, that is D + R <= 256.  It owes
-    nothing to the TPU's VMEM, unlike the reference's rule
-    (``eqlb.engine.k3_takes``)."""
+    nothing to the TPU's VMEM, unlike the reference's rule (D <= 110)."""
     return any(_tile_covers(route, D, R) for route in _K3_TILES)
 
 
@@ -246,9 +247,8 @@ def batched_kkt_solve_bl(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batch-last solve: A (D, D, X), b (D, R, X) -> x (D, R, X), pivot-free.
 
     CPU tensors take the plain version; CUDA tensors launch the K1 kernel
-    of the route ``k1_plan(D, R, dtype, X=X)`` picks.
-    ``batched_kkt_solve_bl.launches`` counts the launches,
-    ``batched_kkt_solve_bl.launches_by_route`` splits them."""
+    of the route ``k1_plan(D, R, dtype, X=X)`` picks (counted as "K1" by
+    route, ``ops.launches``)."""
     return _solve_route_bl(A, b, None)
 
 
@@ -305,35 +305,23 @@ def _solve_route_bl(A: torch.Tensor, b: torch.Tensor, route: str | None,
     x = torch.empty_like(b)
     if X == 0 or D == 0 or R == 0:
         return x
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        lib = _build.library()
-        if route == "tile":
-            if not _tiles_checked:
-                _check_tiles(lib)
-            name = _FUNCS_BL_TILE[A.dtype]
-            code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
-                                      x.data_ptr(), D, R, X,
-                                      k1_tile_threads(D, A.dtype), stream)
-        elif route == "block":
-            name = _FUNCS_BL_BLOCK[A.dtype]
-            code = getattr(lib, name)(
-                A.data_ptr(), b.data_ptr(), x.data_ptr(), D, R, X,
-                threads or k1_block_threads(D, R, X, A.dtype), stream)
-        else:
-            scratch = torch.empty_like(A)
-            name = _FUNCS[A.dtype]
-            code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
-                                      scratch.data_ptr(), x.data_ptr(),
-                                      D, R, X, stream)
-        _build.check(code, name)
-    batched_kkt_solve_bl.launches += 1
-    batched_kkt_solve_bl.launches_by_route[route] += 1
+    if route == "tile":
+        if not _tiles_checked:
+            _check_tiles(_build.library())
+        _build.launch("K1", _FUNCS_BL_TILE[A.dtype], A.device, A.data_ptr(),
+                      b.data_ptr(), x.data_ptr(), D, R, X,
+                      k1_tile_threads(D, A.dtype), split=route)
+    elif route == "block":
+        _build.launch("K1", _FUNCS_BL_BLOCK[A.dtype], A.device, A.data_ptr(),
+                      b.data_ptr(), x.data_ptr(), D, R, X,
+                      threads or k1_block_threads(D, R, X, A.dtype),
+                      split=route)
+    else:
+        scratch = torch.empty_like(A)
+        _build.launch("K1", _FUNCS[A.dtype], A.device, A.data_ptr(),
+                      b.data_ptr(), scratch.data_ptr(), x.data_ptr(), D, R,
+                      X, split=route)
     return x
-
-
-batched_kkt_solve_bl.launches = 0
-batched_kkt_solve_bl.launches_by_route = dict.fromkeys(K1_ROUTES, 0)
 
 
 def batched_kkt_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -360,9 +348,8 @@ def batched_kkt_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     batch.
 
     CPU tensors take the plain version; CUDA tensors launch the K3 kernel
-    of the route ``k3_plan(D, R, dtype)`` picks.
-    ``batched_kkt_solve.launches`` counts the launches,
-    ``batched_kkt_solve.launches_by_route`` splits them."""
+    of the route ``k3_plan(D, R, dtype)`` picks (counted as "K3" by route,
+    ``ops.launches``)."""
     return _solve_route(A, b, None)
 
 
@@ -436,39 +423,21 @@ def _solve_route(A: torch.Tensor, b: torch.Tensor,
     x = torch.empty_like(b)
     if N == 0 or D == 0 or R == 0:
         return x
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        lib = _build.library()
-        if route == "shared":
-            name = _FUNCS_BM[A.dtype]
-            code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
-                                      x.data_ptr(), N, D, R, stream)
-        elif route in K3_REG_TILES:
-            if "register" not in _tiles_checked_k3:
-                _check_reg_tiles(lib)
-            name = _FUNCS_BM_REG[A.dtype]
-            code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
-                                      x.data_ptr(), N, D, R,
-                                      *K3_REG_TILES[route], stream)
-        elif route in K3_WIDE_TILES:
-            if "wide" not in _tiles_checked_k3:
-                _check_wide_tiles(lib)
-            name = _FUNCS_BM_WIDE[A.dtype]
-            code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
-                                      x.data_ptr(), N, D, R,
-                                      *K3_WIDE_TILES[route], stream)
-        else:
-            if "cluster" not in _tiles_checked_k3:
-                _check_cluster_tiles(lib)
-            name = _FUNCS_BM_CLUSTER[A.dtype]
-            code = getattr(lib, name)(A.data_ptr(), b.data_ptr(),
-                                      x.data_ptr(), N, D, R,
-                                      *K3_CLUSTER_TILES[route], stream)
-        _build.check(code, name)
-    batched_kkt_solve.launches += 1
-    batched_kkt_solve.launches_by_route[route] += 1
+    args = A.data_ptr(), b.data_ptr(), x.data_ptr(), N, D, R
+    if route == "shared":
+        _build.launch("K3", _FUNCS_BM[A.dtype], A.device, *args, split=route)
+        return x
+    if route in K3_REG_TILES:
+        what, funcs, tiles, check = ("register", _FUNCS_BM_REG, K3_REG_TILES,
+                                     _check_reg_tiles)
+    elif route in K3_WIDE_TILES:
+        what, funcs, tiles, check = ("wide", _FUNCS_BM_WIDE, K3_WIDE_TILES,
+                                     _check_wide_tiles)
+    else:
+        what, funcs, tiles, check = ("cluster", _FUNCS_BM_CLUSTER,
+                                     K3_CLUSTER_TILES, _check_cluster_tiles)
+    if what not in _tiles_checked_k3:
+        check(_build.library())
+    _build.launch("K3", funcs[A.dtype], A.device, *args, *tiles[route],
+                  split=route)
     return x
-
-
-batched_kkt_solve.launches = 0
-batched_kkt_solve.launches_by_route = dict.fromkeys(K3_ROUTES, 0)

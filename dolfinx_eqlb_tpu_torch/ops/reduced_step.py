@@ -28,13 +28,17 @@ import torch
 
 from ..utils import profiling
 from . import _build
-from .load_moments import KERNEL_DEGREES
+from .load_moments import fold_rhs
 
-__all__ = ["KERNEL_DEGREES", "kernel_uslots", "reduced_step",
-           "reduced_step_plain"]
+__all__ = ["kernel_uslots", "reduced_step", "reduced_step_plain",
+           "K6_EPILOGUES"]
 
 _FUNCS = {torch.float32: "eqlb_reduced_step_f32",
           torch.float64: "eqlb_reduced_step_f64"}
+# the kernel's epilogues: an interior bucket's cached inverse applied in
+# place, or a boundary bucket's reduced right-hand side written out
+K6_EPILOGUES = ("inverse", "rhs")
+_build.count_launches("K6", K6_EPILOGUES)
 
 
 def kernel_uslots(k: int) -> np.ndarray:
@@ -52,16 +56,6 @@ def _degree(nkeep: int) -> int:
     if k < 1 or k * (k + 1) != nkeep:
         raise ValueError(f"nkeep = {nkeep} is no RT degree's k (k + 1)")
     return k
-
-
-def _bx(a: torch.Tensor, n_rhs: int) -> torch.Tensor:
-    """Broadcast a geometry tensor (..., P) along the folded RHS axis ->
-    (..., n_rhs * P), RHS-major (a copy when n_rhs > 1)."""
-    if n_rhs == 1:
-        return a
-    P = a.shape[-1]
-    return a.unsqueeze(-2).expand(*a.shape[:-1], n_rhs, P).reshape(
-        *a.shape[:-1], n_rhs * P)
 
 
 def reduced_step_plain(sp, Fv, Mc, patch_idx, Zunit, ucols, exit_idx,
@@ -84,15 +78,15 @@ def reduced_step_plain(sp, Fv, Mc, patch_idx, Zunit, ucols, exit_idx,
     # spokes) sit on canonical slots 0 and k
     wen, wex = cumalpha[:n], cumalpha[exit_idx]  # (n, P)
     bz = torch.einsum("csd,csx->dx", Zunit, resid)
-    bz[0] = (_bx(wen, n_rhs) * resid[:, 0]
-             + _bx(wex, n_rhs) * resid[:, k]).sum(0)
+    bz[0] = (fold_rhs(wen, n_rhs) * resid[:, 0]
+             + fold_rhs(wex, n_rhs) * resid[:, k]).sum(0)
     if Ainv is None:
         return bz
     y = torch.einsum("dep,erp->drp", Ainv, bz.view(Dz, n_rhs, P)).reshape(
         Dz, X)
     if Dz > 1:
         sp.index_add_(0, sel, y[1:])
-    sp[0: ns * k: k] += y[0][None] * _bx(cumalpha, n_rhs)
+    sp[0: ns * k: k] += y[0][None] * fold_rhs(cumalpha, n_rhs)
     return sp
 
 
@@ -166,36 +160,24 @@ def reduced_step(sp, Fv, Mc, patch_idx, Zunit, ucols, exit_idx, cumalpha,
 
     Returns b_z (Dz, X) without ``Ainv``, else sp with the solution added in
     place.  CPU tensors take the plain version; CUDA tensors launch the K6
-    kernel (k in ``KERNEL_DEGREES``, else ValueError;
-    ``reduced_step.launches`` counts the launches and
-    ``reduced_step.launches_by_epilogue`` splits them into "inverse" and
-    "rhs").  The kernel does not check the index tables' ranges (that would
-    cost a device sync per call): the engine builds them on the host."""
+    kernel (k in ``_build.SE_KERNEL_DEGREES``, else ValueError; counted as
+    "K6" by epilogue, ``K6_EPILOGUES``, in ``ops.launches``).  The kernel
+    does not check the index tables' ranges (that would cost a device sync
+    per call): the engine builds them on the host."""
     k, n, ns, Dz, n_rhs, P = _check(sp, Fv, Mc, patch_idx, Zunit, ucols,
                                      exit_idx, cumalpha, sel, Ainv)
     if sp.device.type == "cpu":
         profiling.annotate(route="plain")
         return reduced_step_plain(sp, Fv, Mc, patch_idx, Zunit, ucols,
                                   exit_idx, cumalpha, sel, Ainv)
-    if k not in KERNEL_DEGREES:
-        raise ValueError(f"the kernel takes k = 1..4, not k = {k}")
+    _build.check_se_degree(k, "the reduced-step kernel (K6)")
     profiling.annotate(route="kernel")
     bz = None if Ainv is not None else torch.empty(
         (Dz, n_rhs * P), dtype=sp.dtype, device=sp.device)
-    name = _FUNCS[sp.dtype]
-    with torch.cuda.device(sp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        fn = getattr(_build.library(), name)
-        _build.check(fn(*(t.data_ptr() for t in (
-            sp, Fv, Mc, patch_idx, ucols, exit_idx, cumalpha, sel)),
-            None if Ainv is None else Ainv.data_ptr(),
-            None if bz is None else bz.data_ptr(),
-            k, n, ns, Dz, n_rhs, P, *Mc.stride()[:3], stream), name)
-    reduced_step.launches += 1
-    reduced_step.launches_by_epilogue["rhs" if bz is not None
-                                      else "inverse"] += 1
+    _build.launch("K6", _FUNCS[sp.dtype], sp.device, *(t.data_ptr() for t in (
+        sp, Fv, Mc, patch_idx, ucols, exit_idx, cumalpha, sel)),
+        None if Ainv is None else Ainv.data_ptr(),
+        None if bz is None else bz.data_ptr(),
+        k, n, ns, Dz, n_rhs, P, *Mc.stride()[:3],
+        split="inverse" if bz is None else "rhs")
     return sp if bz is None else bz
-
-
-reduced_step.launches = 0
-reduced_step.launches_by_epilogue = {"inverse": 0, "rhs": 0}

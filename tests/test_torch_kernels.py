@@ -6,8 +6,10 @@ plans of K1 and K3, with the checks of the tables they share with C.  The CUDA k
 themselves run only on the card; ``chip_smoke.py`` holds them against these
 plain versions there."""
 
+import contextlib
 import ctypes
 import os
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,24 +23,28 @@ from dolfinx_eqlb_tpu.mesh import unit_square as jax_unit_square
 from dolfinx_eqlb_tpu.ops.patch_solve import batched_kkt_solve as jax_k3
 from dolfinx_eqlb_tpu.ops.patch_solve import batched_kkt_solve_bl as jax_k1
 
+from dolfinx_eqlb_tpu_torch import ops
+from dolfinx_eqlb_tpu_torch.ops import _build
 from dolfinx_eqlb_tpu_torch.ops.lane_select import (
     combine_gather, combine_gather_plain, ds_combine_gather,
     ds_combine_gather_plain,
 )
 import dolfinx_eqlb_tpu_torch.eqlb.engine as port_engine
-from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine, k3_admits, k3_takes
+from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
 from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
 from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
 from dolfinx_eqlb_tpu_torch.mesh import unit_square, unit_square_unstructured
+from dolfinx_eqlb_tpu_torch.ops.load_moments import load_moments
+from dolfinx_eqlb_tpu_torch.ops.reduced_step import K6_EPILOGUES, reduced_step
 from dolfinx_eqlb_tpu_torch.ops.patch_solve import (
     K1_ROUTES, K1_TILE_MAX_D, K1_TILE_MAX_D_R1, K1_TILE_MIN_X,
-    K1_TILE_SMALL_D, K1_TILES,
+    K1_TILE_SMALL_D, K1_TILES, K3_ROUTES,
     K3_CLUSTER_TILES, K3_REG_TILES, K3_WIDE_TILES, SMEM_LIMIT,
     _check_cluster_tiles, _check_reg_tiles, _check_tiles,
     _check_wide_tiles, _solve_route,
     _solve_route_bl, batched_kkt_solve, batched_kkt_solve_bl,
     batched_kkt_solve_bl_plain, batched_kkt_solve_plain, k1_block_fits,
-    k1_block_threads, k1_plan, k1_tile_threads, k3_plan,
+    k1_block_threads, k1_plan, k1_tile_threads, k3_admits, k3_plan,
 )
 from tests.test_torch_kkt import _OneThread
 
@@ -78,11 +84,11 @@ def test_k1_plain_matches_pallas_and_linalg(D, rhs):
 def test_k1_wrapper_on_cpu_is_the_plain_version():
     A, b = _spd_batch(5, 5, 64, seed=1)
     At, bt = torch.tensor(A), torch.tensor(b)
-    before = batched_kkt_solve_bl.launches
+    before = ops.launches()["K1"]
     torch.testing.assert_close(batched_kkt_solve_bl(At, bt),
                                batched_kkt_solve_bl_plain(At, bt),
                                rtol=0, atol=0)
-    assert batched_kkt_solve_bl.launches == before  # no kernel launch on CPU
+    assert ops.launches()["K1"] == before  # no kernel launch on CPU
 
 
 def test_k1_wrapper_rejects_bad_shapes():
@@ -177,7 +183,7 @@ def test_k1_wrapper_routes_on_cpu():
     shape, or an unknown one, raises."""
     A, b = _spd_batch(7, 3, 40, seed=6)
     At, bt = torch.tensor(A), torch.tensor(b)
-    before = dict(batched_kkt_solve_bl.launches_by_route)
+    before = ops.launches(split=True)["K1"]
     ref = batched_kkt_solve_bl_plain(At, bt)
     for route in (*K1_ROUTES, None):
         torch.testing.assert_close(_solve_route_bl(At, bt, route), ref,
@@ -202,7 +208,7 @@ def test_k1_wrapper_routes_on_cpu():
             for route in (*routes, None):
                 torch.testing.assert_close(_solve_route_bl(Ab, bb, route), bb,
                                            rtol=0, atol=0)
-    assert batched_kkt_solve_bl.launches_by_route == before
+    assert ops.launches(split=True)["K1"] == before
     # no tile covers D = 33; at D = 31 a block of 32 f64 systems exceeds
     # a block's shared memory
     for D, dtype in ((33, torch.float32), (31, torch.float64)):
@@ -286,14 +292,14 @@ def test_k2_wrapper_on_cpu_is_the_plain_version():
     flat = torch.tensor(rng.normal(size=(2, 41)))
     flat[:, -1] = 0.0
     src = torch.tensor(rng.integers(0, 41, size=(17, 3)), dtype=torch.int32)
-    before = combine_gather.launches
+    before = ops.launches()["K2"]
     out = combine_gather(flat, src, 6)
     torch.testing.assert_close(out, combine_gather_plain(flat, src, 6),
                                rtol=0, atol=0)
     ref = flat[:, src[:, 0].long()] + flat[:, src[:, 1].long()]
     ref[:, 6:] += flat[:, src[6:, 2].long()]
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
-    assert combine_gather.launches == before
+    assert ops.launches()["K2"] == before
 
 
 def test_k2_wrapper_rejects_bad_tables():
@@ -343,11 +349,11 @@ def test_k3_plain_matches_pallas_and_linalg(D):
 def test_k3_wrapper_on_cpu_is_the_plain_version():
     A, b = _spd_batch_bm((2, 5), 12, 3, seed=2)
     At, bt = torch.tensor(A), torch.tensor(b)
-    before = batched_kkt_solve.launches
+    before = ops.launches()["K3"]
     torch.testing.assert_close(batched_kkt_solve(At, bt),
                                batched_kkt_solve_plain(At, bt),
                                rtol=0, atol=0)
-    assert batched_kkt_solve.launches == before  # no kernel launch on CPU
+    assert ops.launches()["K3"] == before  # no kernel launch on CPU
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -425,7 +431,7 @@ def test_k3_wrapper_routes_on_cpu():
     route that cannot take the shape, or an unknown one, raises."""
     A, b = _spd_batch_bm((3,), 20, 2, seed=4)
     At, bt = torch.tensor(A), torch.tensor(b)
-    before = dict(batched_kkt_solve.launches_by_route)
+    before = ops.launches(split=True)["K3"]
     ref = batched_kkt_solve_plain(At, bt)
     for route in ("reg4x2", "reg8x5", "wide5x5", "wide7x7", "cluster2x5x10",
                   "cluster4x4x16", "shared"):
@@ -437,7 +443,7 @@ def test_k3_wrapper_routes_on_cpu():
     torch.testing.assert_close(batched_kkt_solve(At, bt),
                                batched_kkt_solve_plain(At, bt),
                                rtol=0, atol=0)
-    assert batched_kkt_solve.launches_by_route == before
+    assert ops.launches(split=True)["K3"] == before
     with pytest.raises(ValueError):  # 16 + 17 columns exceed the 4 x 2 tile
         _solve_route(At[..., :16, :16].contiguous(),
                      torch.zeros(3, 16, 17, dtype=torch.float64), "reg4x2")
@@ -465,9 +471,7 @@ def test_k3_plan_wide8x8_edges(dtype):
 def test_k3_size_rules():
     """The port's rule (``k3_admits``, the engine's flux KKT stage) admits
     every shape a tiled or cluster route covers, D + R <= 256: RT3's
-    D = 120 / 135 / 150 and RT4's D = 130-234, not D + R = 257; the
-    reference's rule (``k3_takes``, kept by the reduced weak-symmetry
-    systems) stops at D = 110 as before."""
+    D = 120 / 135 / 150 and RT4's D = 130-234, not D + R = 257."""
     assert port_engine.k3_admits is k3_admits
     assert all(k3_admits(D, 1) for D in (33, 75, 90, 105, 110, 120, 127,
                                          128, 135, 150, 208, 234, 255))
@@ -475,7 +479,6 @@ def test_k3_size_rules():
     assert not any(k3_admits(D, 1) for D in (256, 260, 300))
     assert all(k3_admits(D, R) == (D + R <= 256)
                for D in range(1, 300, 7) for R in (1, 2, 5, 40))
-    assert [D for D in range(1, 300) if k3_takes(D)] == list(range(1, 111))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -505,36 +508,6 @@ def test_k3_plan_cluster_edges(D, R, route, dtype):
     if route in K3_CLUSTER_TILES:
         c, mr, mc = K3_CLUSTER_TILES[route]
         assert D <= 16 * c * mr and D + R <= 16 * mc
-
-
-def test_weak_symmetry_reduced_keeps_reference_rule(monkeypatch):
-    """``stress.weak_symmetry_bucket_reduced`` solves through
-    ``_dense_solve`` by the reference's rule (its systems are not safe
-    without pivoting): ``k3_takes`` decides, ``k3_admits`` is never asked,
-    and K3 (its plain version here) takes each system ``k3_takes``
-    admits."""
-    from dolfinx_eqlb_tpu_torch.eqlb import stress as tstress
-
-    msh = unit_square_unstructured(4, seed=1)
-    eng = EqlbEngine(FunctionSpace(msh, "RT", 2), build_patches(msh),
-                     dtype=torch.float64, device="cpu")
-    asked, solved = [], []
-    takes, k3 = port_engine.k3_takes, port_engine.batched_kkt_solve
-    monkeypatch.setattr(port_engine, "k3_takes",
-                        lambda D: asked.append(D) or takes(D))
-    monkeypatch.setattr(port_engine, "k3_admits", lambda D, R: pytest.fail(
-        "the reduced formulation asked the port's rule"))
-    monkeypatch.setattr(port_engine, "batched_kkt_solve",
-                        lambda A, b: solved.append(A.shape[-1]) or k3(A, b))
-    rng = np.random.default_rng(7)
-    key = max(eng.buckets, key=lambda k: eng.buckets[k].npatches)
-    P, nflux = eng.tables[key]["gdofs"].shape[0], eng.kkt_size(key)[1]
-    sol = torch.tensor(rng.normal(size=(2, P, nflux)))
-    fk = torch.zeros((2, msh.num_facets), dtype=torch.int8)
-    d_proj = torch.tensor(rng.normal(size=(2, msh.num_cells, 2, 3)))
-    y = tstress.weak_symmetry_bucket_reduced(eng, key, sol, fk, d_proj)
-    assert y.shape == (2, P, nflux) and asked
-    assert solved == [D for D in asked if takes(D)]
 
 
 class _TileLib:
@@ -671,13 +644,13 @@ def test_k4_wrapper_on_cpu_is_the_plain_version():
     flat = torch.tensor(rng.normal(size=(2, 41)))
     flat[:, -1] = 0.0
     src = torch.tensor(rng.integers(0, 41, size=(17, 3)), dtype=torch.int32)
-    before = ds_combine_gather.launches
+    before = ops.launches()["K4"]
     out = ds_combine_gather(flat, src, 6)
     torch.testing.assert_close(out, ds_combine_gather_plain(flat, src, 6),
                                rtol=0, atol=0)
     x64 = combine_gather_plain(flat, src, 6)
     assert (out - x64).abs().max() <= 1e-14 * x64.abs().max()
-    assert ds_combine_gather.launches == before
+    assert ops.launches()["K4"] == before
 
 
 def test_k4_wrapper_rejects_bad_tables():
@@ -689,3 +662,49 @@ def test_k4_wrapper_rejects_bad_tables():
                           src.long(), 0)
     with pytest.raises(ValueError):
         ds_combine_gather(torch.zeros(1, 10, dtype=torch.float64), src, 5)
+
+
+def test_launch_registry_names_every_kernel_and_its_splits():
+    """One registry in ``ops`` counts every kernel's launches: K1-K6, K1
+    and K3 by route, K6 by epilogue; no wrapper keeps a count of its
+    own."""
+    assert list(ops.launches()) == ["K1", "K2", "K3", "K4", "K5", "K6"]
+    assert {k: tuple(c) for k, c in ops.launches(split=True).items()} == {
+        "K1": K1_ROUTES, "K3": K3_ROUTES, "K6": ("inverse", "rhs")}
+    assert K6_EPILOGUES == ("inverse", "rhs")
+    for fn in (batched_kkt_solve_bl, combine_gather, batched_kkt_solve,
+               ds_combine_gather, load_moments, reduced_step):
+        for attr in ("launches", "launches_by_route", "launches_by_epilogue"):
+            assert not hasattr(fn, attr), (fn.__name__, attr)
+
+
+def test_launch_counts_each_kernel_and_one_reset_zeroes_them(monkeypatch):
+    """``_build.launch`` calls the symbol with the device's current stream
+    last, raises on a non-zero code, and counts the launch under its
+    kernel and split, a failed one not; ``ops.reset_launches`` zeroes every
+    count.  The device calls are stood in for: no card here."""
+    calls = []
+    monkeypatch.setitem(_build._symbols, "fake",
+                        lambda *a: calls.append(a) or 0)
+    monkeypatch.setitem(_build._symbols, "fails", lambda *a: 7)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: SimpleNamespace(cuda_stream=99))
+    before, splits = ops.launches(), ops.launches(split=True)
+    for kernel in before:
+        split = next(iter(splits[kernel])) if kernel in splits else None
+        _build.launch(kernel, "fake", "cuda:0", kernel, 1, split=split)
+    assert calls == [(kernel, 1, 99) for kernel in before]
+    after = ops.launches()
+    assert after == {kernel: n + 1 for kernel, n in before.items()}
+    assert {k: next(iter(c.values())) for k, c in
+            ops.launches(split=True).items()} == {
+        k: next(iter(c.values())) + 1 for k, c in splits.items()}
+    with pytest.raises(RuntimeError, match="fails: CUDA error 7"):
+        _build.launch("K2", "fails", "cuda:0")
+    assert ops.launches() == after
+    ops.reset_launches()
+    assert set(ops.launches().values()) == {0}
+    assert all(set(c.values()) == {0}
+               for c in ops.launches(split=True).values())

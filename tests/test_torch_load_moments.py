@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from dolfinx_eqlb_tpu_torch import ops
 from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
 from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
 from dolfinx_eqlb_tpu_torch.fem import FunctionSpace
@@ -170,10 +171,10 @@ def _call(eng, seed):
 def test_cpu_equilibrate_takes_the_plain_route(cpu_engines):
     eng = cpu_engines("crossed", 2)
     nb = len(eng.buckets)
-    before = load_moments.launches
+    before = ops.launches()["K5"]
     with profiling.recording() as recs:
         _call(eng, seed=3)
-    assert load_moments.launches == before
+    assert ops.launches()["K5"] == before
     spans = [r for r in recs if r.name == "se.load_moments"]
     assert len(spans) == nb
     assert all(r.attrs.get("route") == "plain" for r in spans)
@@ -196,13 +197,36 @@ def test_degree_past_the_kernel_refused_on_the_card_runs_on_cpu():
     eng._check_options()
 
 
+def test_degree_rule_is_one_constant(monkeypatch):
+    """The RT degrees the semi-explicit card kernels take are one constant,
+    ``ops._build.SE_KERNEL_DEGREES``: cut to (1, 2), an engine on a card
+    device refuses RT3 at its entry with a message built from it, and K5's
+    accepted moment counts (ndg = k (k + 1) / 2) follow."""
+    from dolfinx_eqlb_tpu_torch.ops import _build
+    from dolfinx_eqlb_tpu_torch.ops.load_moments import _kernel_degree
+
+    monkeypatch.setattr(_build, "SE_KERNEL_DEGREES", (1, 2))
+    eng = _engine("crossed", 3)
+    eng.device = torch.device("cuda", 0)
+    with pytest.raises(ValueError, match="RT degree 1-2, not 3"):
+        _call(eng, seed=7)
+    eng.mode = "kkt"
+    eng._check_options()
+    assert [_kernel_degree(ndg) for ndg in (1, 3)] == [1, 2]
+    for ndg in (6, 10):
+        with pytest.raises(ValueError, match="RT degree 1-2, not"):
+            _kernel_degree(ndg)
+    with pytest.raises(ValueError, match="no RT degree"):
+        _kernel_degree(4)
+
+
 @pytest.mark.card
 def test_degree_past_the_kernel_refused_on_a_card_engine(card):
     eng = _engine("crossed", 5, device=card)
-    before = load_moments.launches
+    before = ops.launches()["K5"]
     with pytest.raises(ValueError, match="RT degree 1-4"):
         _call(eng, seed=6)
-    assert load_moments.launches == before
+    assert ops.launches()["K5"] == before
     eng.mode = "kkt"
     eng._check_options()
 
@@ -217,7 +241,7 @@ def test_kernel_matches_plain(card, dtype, k, n_rhs, chunk):
     eng = _engine("unstructured", k, device=card, dtype=dtype, chunk=chunk)
     dev, refd = eng._device_tables()
     dprT = _dprT(eng, n_rhs, seed=1000 + 10 * k + n_rhs)
-    before = load_moments.launches
+    before = ops.launches()["K5"]
     for key in eng.buckets:
         args = _args(dprT, dev[key], refd)
         Fv, Fq = load_moments(*args)
@@ -228,18 +252,18 @@ def test_kernel_matches_plain(card, dtype, k, n_rhs, chunk):
             assert torch.isfinite(got).all()
             err = (got - want).abs().max().item()
             assert err <= tol * want.abs().max().item()
-    assert load_moments.launches == before + len(eng.buckets)
+    assert ops.launches()["K5"] == before + len(eng.buckets)
 
 
 @pytest.mark.card
 @pytest.mark.parametrize("mesh", sorted(_MESHES))
 def test_equilibrate_launches_one_a_bucket(card, mesh):
     eng = _engine(mesh, 2, device=card, chunk=9)
-    before = load_moments.launches
+    before = ops.launches()["K5"]
     with profiling.recording() as recs:
         _call(eng, seed=4)
     torch.cuda.synchronize(card)
-    assert load_moments.launches == before + len(eng.buckets)
+    assert ops.launches()["K5"] == before + len(eng.buckets)
     spans = [r for r in recs if r.name == "se.load_moments"]
     assert [r.attrs.get("route") for r in spans] == ["kernel"] * len(spans)
     assert len(spans) == len(eng.buckets)

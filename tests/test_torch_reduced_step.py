@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from dolfinx_eqlb_tpu_torch import ops
 from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
 from dolfinx_eqlb_tpu_torch.eqlb.patches import build_patches
 from dolfinx_eqlb_tpu_torch.eqlb.semiexplicit import (
@@ -259,11 +260,10 @@ def _call(eng, seed):
 
 def test_cpu_equilibrate_takes_the_plain_route(cpu_engines):
     eng = cpu_engines("crossed", 2)
-    before = (reduced_step.launches, dict(reduced_step.launches_by_epilogue))
+    before = ops.launches(split=True)["K6"]
     with profiling.recording() as recs:
         _call(eng, seed=3)
-    assert (reduced_step.launches,
-            reduced_step.launches_by_epilogue) == before
+    assert ops.launches(split=True)["K6"] == before
     spans = [r for r in recs if r.name == "se.reduced_rhs"]
     assert len(spans) == len(eng.buckets)
     assert all(r.attrs.get("route") == "plain" for r in spans)
@@ -311,7 +311,7 @@ def test_kernel_matches_plain(card, mesh, dtype, k, n_rhs, chunk):
     tol = 1e-13
     eng = _engine(mesh, k, device=card, dtype=dtype, chunk=chunk)
     dev, refd = eng._device_tables()
-    before = reduced_step.launches
+    before = ops.launches()["K6"]
     for i, key in enumerate(sorted(eng.buckets)):
         dv = dev[key]
         sp, Fv = _path_operands(eng, key, dv, refd, n_rhs,
@@ -328,7 +328,7 @@ def test_kernel_matches_plain(card, mesh, dtype, k, n_rhs, chunk):
         exact, bound = _f32_bound(sp, Fv, dv)
         for out in (got, want):
             assert ((out.double() - exact).abs() <= bound).all()
-    assert reduced_step.launches == before + len(eng.buckets)
+    assert ops.launches()["K6"] == before + len(eng.buckets)
 
 
 def _f32_bound(sp, Fv, dv):
@@ -357,13 +357,13 @@ def _f32_bound(sp, Fv, dv):
 def test_equilibrate_launches_one_a_bucket(card, mesh):
     eng = _engine(mesh, 2, device=card, chunk=9)
     interior = sum(not b.is_boundary for b in eng.buckets.values())
-    launches = reduced_step.launches
-    by = dict(reduced_step.launches_by_epilogue)
+    launches = ops.launches()["K6"]
+    by = ops.launches(split=True)["K6"]
     with profiling.recording() as recs:
         _call(eng, seed=4)
     torch.cuda.synchronize(card)
-    assert reduced_step.launches == launches + len(eng.buckets)
-    assert reduced_step.launches_by_epilogue == {
+    assert ops.launches()["K6"] == launches + len(eng.buckets)
+    assert ops.launches(split=True)["K6"] == {
         "inverse": by["inverse"] + interior,
         "rhs": by["rhs"] + len(eng.buckets) - interior}
     spans = [r for r in recs if r.name == "se.reduced_rhs"]

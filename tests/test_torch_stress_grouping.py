@@ -1,6 +1,5 @@
-"""Patch grouping, the KKT mode and the reduced formulation of the port's
-weakly symmetric stress equilibration against the JAX package's, f64 on
-the CPU:
+"""Patch grouping and the KKT mode of the port's weakly symmetric stress
+equilibration against the JAX package's, f64 on the CPU:
 
 * patch grouping at degree 2 (deficient pure-traction corner patches,
   ``eqlb.grouping``) on the meshes of ``tests/test_grouping.py``: the
@@ -8,12 +7,7 @@ the CPU:
   1e-11 * max(1, max|x|), and the specs of ``tests/test_grouping.py``
   (divergence, jump, boundary conditions, weak symmetry) on the port;
 * the KKT mode with weak symmetry (``mode="kkt"``) within 1e-11 of JAX's
-  on the crossed and permuted meshes at degree 2;
-* ``stress.weak_symmetry_bucket_reduced`` on one interior and one boundary
-  bucket of the unstructured mesh within 1e-11, on JAX's flux solution;
-  it solves through the engine's ``_dense_solve`` (K3's plain version
-  here), pivot-free, so it is held on the unstructured mesh, whose stars
-  are not symmetric."""
+  on the crossed and permuted meshes at degree 2."""
 
 import numpy as np
 import pytest
@@ -22,14 +16,11 @@ import torch
 from dolfinx_eqlb_tpu import eqlb as jeqlb
 from dolfinx_eqlb_tpu import fem as jfem
 from dolfinx_eqlb_tpu.eqlb import grouping as jgrouping
-from dolfinx_eqlb_tpu.eqlb import stress as jstress
 from dolfinx_eqlb_tpu.mesh import generators as jgen
 
 from dolfinx_eqlb_tpu_torch import eqlb as teqlb
 from dolfinx_eqlb_tpu_torch import fem as tfem
 from dolfinx_eqlb_tpu_torch.eqlb import grouping as tgrouping
-from dolfinx_eqlb_tpu_torch.eqlb import stress as tstress
-from dolfinx_eqlb_tpu_torch.eqlb.engine import EqlbEngine
 from dolfinx_eqlb_tpu_torch.mesh import generators as tgen
 
 # the KKT-size solves of the port on the CPU stay single-threaded (MKL's
@@ -146,51 +137,3 @@ def test_kkt_weak_symmetry_matches_jax(mesh):
                out["jax"]["eq"].list_flux[i].x, 1e-11)
     t = out["torch"]
     assert teqlb.check_weak_symmetry_condition(t["eq"].list_flux, t["proj"])
-
-
-@pytest.fixture(scope="module")
-def reduced_case():
-    """The unstructured mesh's JAX engine with its tables, the exact
-    polynomial stress at degree 2, and a port engine over the same host
-    tables."""
-    import jax.numpy as jnp
-
-    msh = jgen.unit_square_unstructured(4, seed=1)
-    r = _flow("jax", msh, 2, _poly(2))
-    je = r["eq"].engine
-    je._ensure_full_tables()
-    dev, refd = je._device_tables()
-    eng = EqlbEngine.from_host_tables(
-        tfem.FunctionSpace(tgen.unit_square_unstructured(4, seed=1), "RT", 2),
-        je.buckets, je.tables, je.se_static, je.ref, device="cpu")
-    d_proj = jnp.asarray(r["eq"]._d_proj)
-    d_rhs = jnp.asarray(r["eq"]._d_rhs)
-    fk = jnp.asarray(r["eq"].boundary_data.facet_kind)
-    bv = jnp.asarray(r["eq"].boundary_data.bvals)
-    return dict(je=je, dev=dev, refd=refd, eng=eng, d_proj=d_proj,
-                d_rhs=d_rhs, fk=fk, bv=bv)
-
-
-@pytest.mark.parametrize("boundary", [False, True])
-def test_weak_symmetry_bucket_reduced_matches_jax(reduced_case, boundary):
-    import jax
-
-    c = reduced_case
-    je = c["je"]
-    key = max((k for k, b in je.buckets.items() if b.is_boundary == boundary),
-              key=lambda k: je.buckets[k].npatches)
-    dv = c["dev"][key]
-
-    def jax_reduced(dp, dr, fk, bv, dv, rf):
-        sol = je._solve_bucket(key, dp, dr, fk, bv, dv, rf)
-        return sol, jstress.weak_symmetry_bucket_reduced(
-            je, key, sol[:2], fk[:2], dp[:2], dv, rf)
-
-    sol, want = jax.jit(jax_reduced)(c["d_proj"], c["d_rhs"], c["fk"],
-                                     c["bv"], dv, c["refd"])
-    got = tstress.weak_symmetry_bucket_reduced(
-        c["eng"], key, torch.as_tensor(np.array(sol[:2])),
-        torch.as_tensor(np.array(c["fk"][:2])),
-        torch.as_tensor(np.array(c["d_proj"][:2])))
-    _close(got, want, 1e-11)
-    assert float(np.abs(np.asarray(want)).max()) > 0.0
