@@ -51,8 +51,11 @@ Phases, one line each:
       beside the one-call library sum ``embedding_bag(mode="sum")`` (held
       to K2 within 4 ulp of max|out|);
    6. the semi-explicit main path: first call, 5 strict calls, 3 x 8
-      pipelined calls, launch counts (K1's by route), output checks, a
-      stage breakdown, the interior inverse build alone by each K1 route;
+      pipelined calls, launch counts (K1's by route), the stage graph's
+      captures and replays (one capture, then a replay every call after
+      the first; the launch counts hold on replayed calls), output checks,
+      a stage breakdown, the interior inverse build alone by each K1
+      route;
    7. f64 parity on ``unit_square(64)``: card (kernels) against the CPU
       (plain versions);
    8. K3 (batch-major pivot-free solve) against its plain version, by the
@@ -811,6 +814,9 @@ def phase_main(engine, data, device, profile=False):
     res["launches"] = read_launches()
     res["k1_launches_by_route"] = read_launches(split=True)["K1"]
     res["k6_launches_by_epilogue"] = read_launches(split=True)["K6"]
+    # stage 3 runs eagerly on the first call, as a captured graph after
+    res["graph_captures"] = engine.graph_captures
+    res["graph_replays"] = engine.graph_replays
     res.update(timing)
     # one more call on the boundary data's host arrays, as ``_solve`` hands
     # them: only the boundary facets' rows go up, and the output is the
@@ -847,8 +853,9 @@ def phase_main(engine, data, device, profile=False):
         engine.V, engine.buckets, engine.tables, engine.se_static, engine.ref,
         dtype=engine.dtype, device=device)
     ref.solver = "torch"
-    x_ref = combine_gather_plain(ref._bucket_solutions(dpT, drT, fk, bv),
-                                 ref._combine_src(), ref._nfk)
+    x_ref = combine_gather_plain(
+        ref._bucket_solutions(ref._pack_dofs(dpT, drT, True), fk, bv),
+        ref._combine_src(), ref._nfk)
     scale = float(x_ref.abs().max())
     res["max_abs_err_vs_plain"] = float((x - x_ref).abs().max())
     res["err_limit"] = 1e-4 * scale
@@ -861,7 +868,7 @@ def phase_main(engine, data, device, profile=False):
     dprT = torch.cat([dpT, drT[:, None]], dim=1)
     for _ in range(3):
         t0 = time.perf_counter()
-        flat = engine._bucket_solutions(dpT, drT, fk, bv)
+        flat = engine._bucket_solutions(dprT, fk, bv)
         sync(device)
         stages["bucket_solves_ms"].append((time.perf_counter() - t0) * 1e3)
         t0 = time.perf_counter()
@@ -1395,8 +1402,9 @@ def phase_mixed(V, buckets, msh, device):
         return eng
 
     ref = engine("torch", "gather")
-    x_ref = combine_gather_plain(ref._bucket_solutions(dpT, drT, fk, bv),
-                                 ref._combine_src(), ref._nfk)
+    x_ref = combine_gather_plain(
+        ref._bucket_solutions(ref._pack_dofs(dpT, drT, True), fk, bv),
+        ref._combine_src(), ref._nfk)
     del ref
     engm.solver, engm.combine = "kernel_mixed", "ds"
     torch.cuda.empty_cache()
@@ -2248,7 +2256,8 @@ def phase_stress(V, buckets, msh, device) -> dict:
     ref.solver = "torch"
     ref.ensure_stress_caches()
     x_ref = combine_gather_plain(
-        ref._bucket_solutions(dpT, drT, fk, bv, weak_symmetry=True),
+        ref._bucket_solutions(ref._pack_dofs(dpT, drT, True), fk, bv,
+                              weak_symmetry=True),
         ref._combine_src(), ref._nfk)
     del ref
     scale = float(x_ref.abs().max())
@@ -2820,7 +2829,8 @@ def engine_call_checks(eng, call, weak_symmetry, dpT, drT, fk, bv, device,
     if weak_symmetry:
         ref.ensure_stress_caches()
     x_ref = combine_gather_plain(
-        ref._bucket_solutions(dpT, drT, fk, bv, weak_symmetry=weak_symmetry),
+        ref._bucket_solutions(ref._pack_dofs(dpT, drT, True), fk, bv,
+                              weak_symmetry=weak_symmetry),
         ref._combine_src(), ref._nfk)
     del ref
     res["max_abs_err_vs_plain"] = float((x - x_ref).abs().max())
@@ -3394,7 +3404,8 @@ def stress_shard_rank(rank, world, device, n, reps):
         sync(dev)
         t0 = time.perf_counter()
         with full_f32_matmul():
-            flat = loc._bucket_solutions(dpT, drT, fkd, bvd, True, None)
+            flat = loc._bucket_solutions(loc._pack_dofs(dpT, drT, True),
+                                         fkd, bvd, True, None)
         sync(dev)
         t1 = time.perf_counter()
         xp = loc._combine_flat(flat)
@@ -3704,24 +3715,30 @@ def report_sharding(r: dict, nph: int, failures: list) -> None:
 # phase 23: the port's bench by mode: its arguments after n (None: n is
 # fixed in the arguments) and the launches a timed call makes, K1 by route
 # (routes absent: none); the bench hands the engine its boundary data as
-# device tensors, so nothing is uploaded
+# device tensors, so nothing is uploaded.  The timed calls follow three
+# untimed ones, so stage 3 replays its captured graph once a call, but
+# under weak symmetry (--stress), which stays eager
 BENCH_NO_UPLOAD = {"input_uploads": 0, "input_bytes": 0}
+BENCH_REPLAY = {"graph_captures": 0, "graph_replays": 1}
 BENCH_MODES = {
     # K5 and K6 once a chunk: 6 chunks at n = 500 (chunk 131072), 10 at the
     # mixed chunk (65536), 6 on the Biot mesh
     "default": ([], {"K1": {"tile": 2}, "K2": 1, "K3": 0, "K4": 0, "K5": 6,
-                     "K6": 6, "pivoted_solves": 0, **BENCH_NO_UPLOAD}),
+                     "K6": 6, "pivoted_solves": 0, **BENCH_NO_UPLOAD,
+                     **BENCH_REPLAY}),
     "stress": (["--stress"], {"K1": {"tile": 2}, "K2": 1, "K3": 0, "K4": 0,
                               "K5": 6, "K6": 6, "pivoted_solves": 2,
-                              **BENCH_NO_UPLOAD}),
+                              **BENCH_NO_UPLOAD, "graph_captures": 0,
+                              "graph_replays": 0}),
     # the f32 factorisation and its one f64 correction per boundary chunk
     "mixed": (["--mixed"], {"K1": {"tile": 4}, "K2": 0, "K3": 0, "K4": 1,
                             "K5": 10, "K6": 10, "pivoted_solves": 0,
-                            **BENCH_NO_UPLOAD}),
+                            **BENCH_NO_UPLOAD, **BENCH_REPLAY}),
     # 65,536 cells (phase 19 runs the 1,048,576-cell headline): three
     # boundary patch shapes on the refined hierarchy, three masked solves
     "biot": (None, {"K1": {"tile": 3}, "K2": 1, "K3": 0, "K4": 0, "K5": 6,
-                    "K6": 6, "pivoted_solves": 0, **BENCH_NO_UPLOAD}),
+                    "K6": 6, "pivoted_solves": 0, **BENCH_NO_UPLOAD,
+                    **BENCH_REPLAY}),
 }
 BENCH_BIOT = dict(n=128, n_fields=3, biot=True)
 BENCH_BIOT_ARGS = ["128", "3", "--biot"]
@@ -4249,7 +4266,8 @@ def main(argv=None) -> int:
         f"{main_res['err_limit']:.3e}); host boundary data "
         f"{main_res['input_bytes']} B in {main_res['input_uploads']} uploads "
         f"a call (limit {INPUT_BYTES_LIMIT}), output bitwise "
-        f"{main_res['host_bc_bitwise']}")
+        f"{main_res['host_bc_bitwise']}; stage graph captures "
+        f"{main_res['graph_captures']}, replays {main_res['graph_replays']}")
     log("    detail: " + json.dumps(
         {key: val for key, val in main_res.items() if key != "profile_table"}))
     if "profile_table" in main_res:
@@ -4261,6 +4279,12 @@ def main(argv=None) -> int:
                 f"events)")
     if launches["K1"] <= 0 or launches["K2"] <= 0:
         failures.append(f"main path skipped a kernel: {launches}")
+    if not (main_res["graph_captures"] == 1
+            and 0 < main_res["graph_replays"] == main_res["calls"] - 1):
+        failures.append(
+            f"main path: stage graph captures {main_res['graph_captures']}, "
+            f"replays {main_res['graph_replays']} over {main_res['calls']} "
+            "calls (want 1 and one a call after the first)")
     if main_res["k5_launches_per_call"] != main_res["chunks"]:
         failures.append(f"main path: K5 {main_res['k5_launches_per_call']} "
                         f"a call over {main_res['chunks']} chunks")

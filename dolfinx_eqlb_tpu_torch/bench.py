@@ -36,7 +36,8 @@ What differs from ``bench.py``:
   ``data_s``, ``engine_tables_s``, ``geometry_caches_s``,
   ``first_call_s``, ``peak_mem_gib`` over the line's calls and
   ``launches``: each kernel's launches per call of the line (K1 by route,
-  K2, K3, K4, K5, K6) and the engine's pivoted solves per call;
+  K2, K3, K4, K5, K6), the engine's pivoted solves and its stage graph's
+  captures and replays per call;
 * the ``--mixed`` re-check in f64 runs in this process on the CPU (the
   reference needed a subprocess to reach its CPU backend), and its
   failure fails the run;
@@ -200,7 +201,9 @@ def _divergence_check(msh, k, x, d_proj0, d_rhs0, device):
 def _counts(engine) -> dict:
     return {**launches(), "K1": launches(split=True)["K1"],
             "pivoted_solves": engine.pivoted_solves,
-            "input_uploads": engine.input_uploads}
+            "input_uploads": engine.input_uploads,
+            "graph_captures": engine.graph_captures,
+            "graph_replays": engine.graph_replays}
 
 
 def _timed(call, engine, device, rounds, per_round):
@@ -208,7 +211,7 @@ def _timed(call, engine, device, rounds, per_round):
     each round (host clock): the last output, ms per call of each round,
     launches per call (K1 by route, K2, K3, K4, K5, K6, pivoted solves, the
     boundary data's host-to-device uploads, and the last call's bytes of
-    them, ``input_bytes``) and the peak device memory in GiB (None on the
+    them, ``input_bytes``, the stage graph's captures and replays) and the peak device memory in GiB (None on the
     CPU)."""
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)

@@ -35,9 +35,14 @@ problem).  ``EqlbEngine.equilibrate`` runs one of two modes:
 ``solver="kernel_mixed"`` on an f64 engine factors in f32 on K1 and refines
 in f64 (``_dense_solve_bl``), the reference's ``"pallas_mixed"``.
 
+On the card, stage 3 of a semi-explicit call without weak symmetry and
+with a solver other than "torch" runs from a static input buffer: eagerly
+on the first call of a key, as one captured CUDA graph from the second on
+(``stage_graph``; counters ``graph_captures`` and ``graph_replays``).
+
 The engine is a plain class holding device tensors in dicts shaped like the
-reference's ``dev`` / ``refd``; it has no parameters.  Everything runs
-eagerly.  Left out on purpose, because they only served the TPU: the
+reference's ``dev`` / ``refd``; it has no parameters.  Everything else
+runs eagerly.  Left out on purpose, because they only served the TPU: the
 fusion fences, the trailing 128-lane NaN-guard pad of every bucket, the
 lane-packed / paired combine layouts, the [hi | lo] f32 load source of the
 double-single route and the compile-cache machinery.  A bucket's tables
@@ -56,7 +61,9 @@ is uploaded; the inputs' cast and batch-last transpose), one
 ``kkt.bucket`` (``kkt.assemble`` over ``kkt.element_data``, then
 ``kkt.solve``) a bucket, ``eqlb.concat`` and ``eqlb.combine``; a solve
 span carries the ``route`` it took.  The first call also builds the
-geometry caches inside ``eqlb.call``.
+geometry caches inside ``eqlb.call``.  Where stage 3 runs as a graph, one
+``se.graph`` span (``route``: ``capture`` or ``replay``) holds it: the
+per-bucket spans are recorded on a key's eager and capture calls only.
 """
 
 from __future__ import annotations
@@ -75,6 +82,7 @@ from ..ops.patch_solve import (
 from ..utils.precision import full_f32_matmul
 from ..utils.profiling import annotate, span
 from .patches import PatchBucket, bucket_dof_tables
+from . import stage_graph
 from .semiexplicit import (
     _HAT_GRADS, boundary_ess_bl, combo_tensors, mass_matrices_bl,
     reduced_basis, reduced_system_bl, reference_tensors, se_host_tables,
@@ -267,6 +275,11 @@ class EqlbEngine:
         # from host arrays, and the uploads so far (``_bc_input``)
         self.input_bytes = 0
         self.input_uploads = 0
+        # stage 3 as a captured CUDA graph (``stage_graph``): the graph of
+        # the last eligible key, its captures and replays so far
+        self._graph = None
+        self.graph_captures = 0
+        self.graph_replays = 0
 
     def _boundary_rows(self, partial=False):
         """The facets whose boundary data any stage reads: the boundary
@@ -512,28 +525,33 @@ class EqlbEngine:
 
     def _bc_input(self, name: str, a, dtype=None) -> torch.Tensor:
         """``facet_kind`` or ``bvals`` (n_rhs, nf, ...) for the stages,
-        which read only the boundary facets' rows (``_bf``).  A tensor
-        goes through ``_input``.  Of a host array only those rows are
-        gathered, staged (``_stage``) and scattered into the engine's
-        buffer ``name`` of the full shape on the device, whose other rows
-        stay zero: the caller may change the array once the call returns.
-        Calls in flight share the buffer, so they must run on one stream,
-        which orders each call's scatter after the last call's reads."""
-        if isinstance(a, torch.Tensor):
-            return self._input(a, dtype)
-        a = np.asarray(a)
-        rows = np.ascontiguousarray(
-            a[:, self._bf], dtype=None if dtype is None else _NP_DTYPE[dtype])
+        which read only the boundary facets' rows (``_bf``), from the
+        engine's buffer ``name`` of the full shape on the device, whose
+        other rows stay zero.  Of a host array only those rows are
+        gathered, staged (``_stage``) and scattered into the buffer, so the
+        caller may change the array once the call returns; of a tensor
+        (``_input``) they are copied on the device.  So a stage graph reads
+        only addresses the engine owns.  Calls in flight share the buffer,
+        so they must run on one stream, which orders each call's scatter
+        after the last call's reads."""
         if self._bf_dev is None:
             self._bf_dev = self._stage(self._bf)
-        staged = self._stage(rows)
+        if isinstance(a, torch.Tensor):
+            a = self._input(a, dtype)
+            rows = a.index_select(1, self._bf_dev)
+        else:
+            a = np.asarray(a)
+            host = np.ascontiguousarray(
+                a[:, self._bf],
+                dtype=None if dtype is None else _NP_DTYPE[dtype])
+            rows = self._stage(host)
+            self.input_bytes += host.nbytes
+            self.input_uploads += 1
         buf = self._bc_buf.get(name)
-        if buf is None or buf.shape != a.shape or buf.dtype != staged.dtype:
-            buf = torch.zeros(a.shape, dtype=staged.dtype, device=self.device)
+        if buf is None or buf.shape != a.shape or buf.dtype != rows.dtype:
+            buf = torch.zeros(a.shape, dtype=rows.dtype, device=self.device)
             self._bc_buf[name] = buf
-        buf.index_copy_(1, self._bf_dev, staged)
-        self.input_bytes += rows.nbytes
-        self.input_uploads += 1
+        buf.index_copy_(1, self._bf_dev, rows)
         return buf
 
     def equilibrate(self, sigma_proj_dofs, rhs_dofs, facet_kind, bvals,
@@ -542,9 +560,9 @@ class EqlbEngine:
         """Solve all patch problems; returns global RT dof vectors
         (n_rhs, ndofs_flux) on the engine's device.
 
-        Inputs may be host arrays or tensors on the engine's device; NumPy
-        dof data is transposed to the batch-last layout on the host
-        (``put_transposed``), tensors on their device.  Of ``facet_kind``
+        Inputs may be host arrays or tensors on the engine's device; the
+        semi-explicit mode packs the dof data batch-last on the device
+        (``_pack_dofs``).  Of ``facet_kind``
         and ``bvals`` only the boundary facets' rows are read; interior
         rows are ignored, whatever they hold.  From host arrays only those
         rows are uploaded (``input_bytes`` bytes, through pinned memory on
@@ -590,9 +608,9 @@ class EqlbEngine:
                 "fallback would silently mis-gather batch-last arrays")
         with span("eqlb.call", mode=self.mode, buckets=len(self.buckets)):
             with span("eqlb.input", rows=len(self._bf)):
-                dp, dr, fk, bv = self._inputs(sigma_proj_dofs, rhs_dofs,
-                                              facet_kind, bvals,
-                                              transposed_inputs)
+                dofs, fk, bv, graph = self._inputs(
+                    sigma_proj_dofs, rhs_dofs, facet_kind, bvals,
+                    transposed_inputs, weak_symmetry)
             annotate(n_rhs=fk.shape[0])
             if weak_symmetry and fk.shape[0] < 2:
                 raise ValueError("weak symmetry needs two stress rows")
@@ -613,36 +631,66 @@ class EqlbEngine:
                     ws_skip[key] = torch.as_tensor(m, device=self.device)
             with full_f32_matmul():
                 if self.mode == "kkt":
-                    flat = self._bucket_solutions_kkt(dp, dr, fk, bv,
+                    flat = self._bucket_solutions_kkt(*dofs, fk, bv,
                                                       weak_symmetry)
+                elif graph is not None:
+                    flat = graph.run(self, fk, bv)
                 else:
                     if weak_symmetry:
                         self.ensure_stress_caches()
-                    flat = self._bucket_solutions(dp, dr, fk, bv,
+                    flat = self._bucket_solutions(dofs, fk, bv,
                                                   weak_symmetry, ws_skip)
                 with span("eqlb.combine"):
                     return self._combine_flat(flat)
 
     def _inputs(self, sigma_proj_dofs, rhs_dofs, facet_kind, bvals,
-                transposed_inputs=False):
-        """The call's inputs on the device, at the engine's dtype: the dof
-        data batch-major in the KKT mode, batch-last in the semi-explicit
-        mode, then ``facet_kind`` and ``bvals`` (``_bc_input``; their
-        bytes staged from the host in ``input_bytes``)."""
+                transposed_inputs=False, weak_symmetry=False):
+        """The call's inputs on the device, at the engine's dtype:
+        ``(dofs, facet_kind, bvals, graph)``.  ``facet_kind`` and
+        ``bvals`` through ``_bc_input`` (their bytes staged from the host
+        in ``input_bytes``).  ``dofs``: in the KKT mode the dof data
+        batch-major (d_proj, d_rhs), in the semi-explicit mode packed
+        batch-last (``_pack_dofs``).  ``graph``: the ``StageGraph`` that
+        runs stage 3 where the call is eligible (``stage_graph``), with
+        the dofs packed into its static buffer; else None."""
         self.input_bytes = 0
         fk = self._bc_input("facet_kind", facet_kind)
         bv = self._bc_input("bvals", bvals, self.dtype)
         if self.mode == "kkt":
-            return (self._input(sigma_proj_dofs, self.dtype),
-                    self._input(rhs_dofs, self.dtype), fk, bv)
-        if transposed_inputs:
-            return sigma_proj_dofs, rhs_dofs, fk, bv
-        if isinstance(sigma_proj_dofs, torch.Tensor):
-            return (self._input(sigma_proj_dofs, self.dtype).movedim(
-                        1, -1).contiguous(),
-                    self._input(rhs_dofs, self.dtype).movedim(
-                        1, -1).contiguous(), fk, bv)
-        return (*self.put_transposed(sigma_proj_dofs, rhs_dofs), fk, bv)
+            return ((self._input(sigma_proj_dofs, self.dtype),
+                     self._input(rhs_dofs, self.dtype)), fk, bv, None)
+        if not stage_graph.eligible(self, weak_symmetry):
+            return (self._pack_dofs(sigma_proj_dofs, rhs_dofs,
+                                    transposed_inputs), fk, bv, None)
+        n_rhs, a, b = rhs_dofs.shape
+        key = stage_graph.graph_key(
+            self, (n_rhs, 3, a, b) if transposed_inputs else (n_rhs, 3, b, a),
+            fk, bv)
+        graph = self._graph
+        if graph is None or not graph.holds(key, self._dev):
+            if graph is not None:
+                graph.drop()
+            graph = self._graph = stage_graph.StageGraph(key, fk, bv)
+        graph.dprT = self._pack_dofs(sigma_proj_dofs, rhs_dofs,
+                                     transposed_inputs, graph.dprT)
+        return graph.dprT, fk, bv, graph
+
+    def _pack_dofs(self, sigma_proj_dofs, rhs_dofs, transposed_inputs=False,
+                   out=None) -> torch.Tensor:
+        """The semi-explicit stages' packed dof data, batch-last
+        dprT (n_rhs, 3, ndg, nc) = [sigma_proj rows 0/1 | rhs], by two
+        strided copies on the device into ``out`` (a new tensor if None).
+        The inputs are batch-major, or batch-last with
+        ``transposed_inputs`` (``put_transposed``)."""
+        dp = self._input(sigma_proj_dofs, self.dtype)
+        dr = self._input(rhs_dofs, self.dtype)
+        if not transposed_inputs:
+            dp, dr = dp.movedim(1, -1), dr.movedim(1, -1)
+        if out is None:
+            out = dr.new_empty((dr.shape[0], 3, *dr.shape[1:]))
+        out[:, :2].copy_(dp)
+        out[:, 2].copy_(dr)
+        return out
 
     def _check_options(self):
         for name, allowed in (("mode", _MODES), ("solver", _SOLVERS),
@@ -659,14 +707,13 @@ class EqlbEngine:
                 f" (its kernels K5 and K6 are built for those); run degree "
                 f"{self.k} with device='cpu' or mode='kkt'")
 
-    def _bucket_solutions(self, dpT, drT, facet_kind, bvals,
+    def _bucket_solutions(self, dprT, facet_kind, bvals,
                           weak_symmetry=False, ws_skip=None):
         """Stage 3: every bucket's patch solutions, concatenated flux-major
         into flat (n_rhs, total + 1) with the zero pad slot last.
-        dpT (n_rhs, 2, ndg, nc), drT (n_rhs, ndg, nc)."""
+        dprT (n_rhs, 3, ndg, nc): the packed dof data (``_pack_dofs``)."""
         dev, refd = self._device_tables()
-        n_rhs = dpT.shape[0]
-        dprT = torch.cat([dpT, drT[:, None]], dim=1)  # (n_rhs, 3, ndg, nc)
+        n_rhs = dprT.shape[0]
         flats = []
         if weak_symmetry:
             self.ws_sing = {}

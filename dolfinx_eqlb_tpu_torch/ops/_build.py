@@ -14,7 +14,10 @@ non-zero code.  The wrappers launch through :func:`launch`, which also
 counts each launch by kernel (``K1``-``K6``) and, where a kernel has them,
 by route or epilogue: a wrapper registers its kernel at import
 (:func:`count_launches`), and :func:`launches` / :func:`reset_launches`
-read and zero every count at once.  ``SE_KERNEL_DEGREES`` is the one rule
+read and zero every count at once.  A captured CUDA graph launches its
+kernels without a call to :func:`launch`: its capture takes the counts of
+the block it captured (:func:`launch_counts`), and each replay adds them
+again (:func:`add_launches`).  ``SE_KERNEL_DEGREES`` is the one rule
 for the RT degrees the semi-explicit stage's kernels take.
 """
 
@@ -32,8 +35,8 @@ import time
 import torch
 
 __all__ = ["library", "build_info", "check", "launch", "count_launches",
-           "launches", "reset_launches", "SE_KERNEL_DEGREES",
-           "check_se_degree"]
+           "launches", "reset_launches", "launch_counts", "add_launches",
+           "SE_KERNEL_DEGREES", "check_se_degree"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -232,6 +235,21 @@ def reset_launches() -> None:
     for counts in _launches.values():
         for s in counts:
             counts[s] = 0
+
+
+def launch_counts(since: dict | None = None) -> dict:
+    """Every registered kernel's counts by split, kernel -> {split: n}: as
+    they stand, or those added since the counts ``since`` were taken."""
+    return {k: {s: n - (since[k][s] if since else 0) for s, n in c.items()}
+            for k, c in _launches.items()}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (as :func:`launch_counts` gives them) to the
+    registry: the launches of one replay of a captured block."""
+    for k, c in counts.items():
+        for s, n in c.items():
+            _launches[k][s] += n
 
 
 def check_se_degree(k: int, what: str, hint: str = "") -> None:

@@ -3,7 +3,8 @@
 The stages read ``facet_kind`` and ``bvals`` only at the boundary spokes of
 the boundary buckets, which are the mesh's boundary facets.  From host
 arrays the engine uploads only those rows (``_bc_input``) into full-width
-buffers of its own; tensors on its device go to the stages as they are.
+buffers of its own; of tensors on its device it copies those rows into the
+same buffers on the device.
 
 On the CPU: the rows are the mesh's boundary facets (a rank's subset on
 the sharded engine); every output from host arrays is bit for bit the
@@ -96,8 +97,8 @@ def _assert_bitwise(got, want):
 
 
 def _full(eng, fk, bv):
-    """The full arrays as tensors on the engine's device: the stages read
-    them as they are."""
+    """The full arrays as tensors on the engine's device, whose boundary
+    rows the engine copies into its buffers on the device."""
     return (torch.as_tensor(fk, device=eng.device),
             torch.as_tensor(bv, device=eng.device))
 
