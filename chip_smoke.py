@@ -62,7 +62,8 @@ Phases, one line each:
       route ``k3_plan`` picks (the register route at D <= 64, the wide
       route to D + R = 128, the cluster route to 256) and on the same
       batch by the shared-memory route (beside a register or wide tile)
-      or by the other cluster tiles that cover the shape, timed in turns,
+      or by the dtype's other cluster tiles that cover the shape (f64:
+      the blocked kernel's, f32: the scalar-step kernel's), timed in turns,
       at the KKT path's shapes, at D = 75, 90, 105 (the wide route's,
       phase 24) at X = 131072 and D = 120 at phase 24's X = 24662, and at
       D = 130, 156, 182, 208 (the cluster route's) at phase 25's bucket
@@ -1020,9 +1021,10 @@ def phase_k3(shapes, device, timer, edges=K3_EDGE_CHECKS):
         batched_kkt_solve_plain, k3_plan,
     )
 
-    def beside(D, R, route):
-        if route in K3_CLUSTER_TILES:
-            return [rt for rt in K3_CLUSTER_TILES
+    def beside(D, R, route, dtype):
+        tiles = K3_CLUSTER_TILES[dtype]
+        if route in tiles:
+            return [rt for rt in tiles
                     if rt != route and _tile_covers(rt, D, R)]
         return ["shared"]
 
@@ -1038,7 +1040,7 @@ def phase_k3(shapes, device, timer, edges=K3_EDGE_CHECKS):
             xp = batched_kkt_solve_plain(A, b)
             scale = float(xp.abs().max())
             route = k3_plan(D, R, dtype)
-            alts = beside(D, R, route)
+            alts = beside(D, R, route, dtype)
             row = dict(dtype=dname(dtype), D=D, R=R, X=X, route=route,
                        beside=alts)
             for name, rt in (("", route), *((f"{a}_", a) for a in alts)):

@@ -92,11 +92,13 @@ _SIGNATURES = {
     "eqlb_lu_solve_bm_wide_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (out, cap): the wide route's built tiles, MR0, MC0, MR1, ...
     "eqlb_lu_solve_bm_wide_tiles": [_P, _I],
-    # (A, b, x, N, D, R, C, MR, MC, stream): K3's cluster route, C CTAs of
-    # 16 x 16 threads a system
+    # (A, b, x, N, D, R, C, MR, MC, stream): K3's cluster route, C CTAs a
+    # system (f32: MR x MC values a thread; f64: MR row blocks, 16 MC
+    # columns)
     "eqlb_lu_solve_bm_cluster_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "eqlb_lu_solve_bm_cluster_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (out, cap): the cluster route's built tiles, C0, MR0, MC0, C1, ...
+    # (out, cap): the cluster route's built tiles, BYTES0, C0, MR0, MC0,
+    # BYTES1, ...
     "eqlb_lu_solve_bm_cluster_tiles": [_P, _I],
     # (flat, src, out, R, L, ndofs, nfk, stream); f64 only
     "eqlb_ds_combine_gather_f64": [_P, _P, _P, _I, _I, _I, _I, _P],

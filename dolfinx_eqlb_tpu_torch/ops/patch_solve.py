@@ -24,9 +24,12 @@ and how its design answers.
   the register route (each thread of a block of 8 x 16 holds a tile of
   [A | b] in registers, one barrier per elimination step), for
   D + R <= 128 the wide route (the same kernel on 16 x 16 threads), for
-  D + R <= 256 the cluster route (a cluster of 2 or 4 blocks of 16 x 16
-  threads holds one system in the registers of as many SMs, row j sent
-  to the peers through distributed shared memory), and for what none
+  D + R <= 256 the cluster route (in f64 a blocked LU: a cluster of 1, 2
+  or 4 blocks holds one system in shared memory, a panel of 16 columns
+  factored by its owner and sent to the peers once, the trailing update on
+  the FP64 tensor cores; in f32 a cluster of 2 or 4 blocks of 16 x 16
+  threads holds one system in registers, row j sent to the peers at each
+  of D steps), and for what none
   covers the shared-memory route ([A | b] staged in one block's shared
   memory).  ``k3_admits``, the shapes a tiled or cluster route covers, is
   the port's size rule for the flux KKT systems.
@@ -128,25 +131,42 @@ K3_REG_TILES = {"reg4x2": (4, 2), "reg7x4": (7, 4), "reg8x5": (8, 5)}
 # tiles.
 K3_WIDE_TILES = {"wide5x5": (5, 5), "wide6x6": (6, 6), "wide7x7": (7, 7),
                  "wide8x8": (8, 8)}
-# K3's cluster route: tiles (C, MR, MC), a cluster of C blocks of 16 x 16
-# threads a system, so 16 C thread rows: a tile covers D <= 16 C MR rows
-# and W <= 16 MC columns, for the systems past every block's tile
-# (128 < D + R <= 256): at R = 1 the 2 x (5 x 10) tile takes D = 128-159
-# (RT4's D = 130 / 156, RT3's 9- and 10-cell patches' D = 135 / 150),
-# 4 x (3 x 12) D = 160-191 (RT4's 182) and 4 x (4 x 16) D = 192-255 (RT4's
-# 208 / 234).  The same list is EQLB_K3_CLUSTER_TILES in
-# csrc/patch_solve_cluster.cu, checked at the first launch like the others.
-K3_CLUSTER_TILES = {"cluster2x5x10": (2, 5, 10), "cluster4x3x12": (4, 3, 12),
-                    "cluster4x4x16": (4, 4, 16)}
-K3_ROUTES = (*K3_REG_TILES, *K3_WIDE_TILES, *K3_CLUSTER_TILES, "shared")
+# K3's cluster route: dtype -> its tiles, a cluster of C blocks a system
+# covering D <= 16 C MR rows and W <= 16 MC columns, for the systems past
+# every block's tile (128 < D + R <= 256).  f32 (C, MR, MC), the
+# scalar-step kernel: C blocks of 16 x 16 threads, each thread an MR x MC
+# register tile; at R = 1 2 x (5 x 10) takes D = 128-159, 4 x (3 x 12)
+# D = 160-191 and 4 x (4 x 16) D = 192-255.  f64 (C, MB, NC), the blocked
+# kernel: C blocks, MB row blocks of 16 each in shared memory, 16 NC
+# columns; one block takes a system while [A | b] fits its shared memory
+# (1 x 10 x 10: D = 128-159 at R = 1, RT4's D = 130 / 156, RT3's 9- and
+# 10-cell patches' D = 135 / 150), 2 x 6 x 12 D = 160-191 (RT4's 182) and
+# 4 x 4 x 16 D = 192-255 (RT4's 208 / 234).  The same list is
+# EQLB_K3_CLUSTER_TILES in csrc/patch_solve_cluster.cu, checked at the
+# first launch like the others.
+K3_CLUSTER_TILES = {
+    torch.float32: {"cluster2x5x10": (2, 5, 10), "cluster4x3x12": (4, 3, 12),
+                    "cluster4x4x16": (4, 4, 16)},
+    torch.float64: {"blocked1x10x10": (1, 10, 10),
+                    "blocked2x6x12": (2, 6, 12),
+                    "blocked4x4x16": (4, 4, 16)}}
+K3_ROUTES = (*K3_REG_TILES, *K3_WIDE_TILES,
+             *(rt for tiles in K3_CLUSTER_TILES.values() for rt in tiles),
+             "shared")
 _build.count_launches("K1", K1_ROUTES)
 _build.count_launches("K3", K3_ROUTES)
-# every tiled route, smallest first, as (thread rows a system, MR, MC): 16
-# thread columns in all of them
+# every tiled route as (G, MR, MC): the tile covers D <= G MR rows and
+# D + R <= 16 MC columns
 _K3_TILES = {**{rt: (8, *t) for rt, t in K3_REG_TILES.items()},
              **{rt: (16, *t) for rt, t in K3_WIDE_TILES.items()},
-             **{rt: (16 * c, mr, mc)
-                for rt, (c, mr, mc) in K3_CLUSTER_TILES.items()}}
+             **{rt: (16 * c, mr, mc) for tiles in K3_CLUSTER_TILES.values()
+                for rt, (c, mr, mc) in tiles.items()}}
+
+
+def _k3_routes(dtype: torch.dtype) -> tuple:
+    """The tiled routes of ``dtype``, smallest first: register, wide, then
+    its cluster tiles."""
+    return (*K3_REG_TILES, *K3_WIDE_TILES, *K3_CLUSTER_TILES[dtype])
 
 
 def _tile_covers(route: str, D: int, R: int) -> bool:
@@ -170,10 +190,10 @@ def k3_plan(D: int, R: int, dtype: torch.dtype) -> str:
     """K3's route for D x D systems with R right-hand sides: the smallest
     register tile that covers [A | b] (``K3_REG_TILES``), else the
     smallest wide tile (``K3_WIDE_TILES``), else the smallest cluster tile
-    (``K3_CLUSTER_TILES``), else ``"shared"`` (the shared-memory kernel, up
-    to ``SMEM_LIMIT`` bytes of [A | b]); raises if none takes the
-    system."""
-    for route in _K3_TILES:
+    of the dtype (``K3_CLUSTER_TILES[dtype]``), else ``"shared"`` (the
+    shared-memory kernel, up to ``SMEM_LIMIT`` bytes of [A | b]); raises
+    if none takes the system."""
+    for route in _k3_routes(dtype):
         if _tile_covers(route, D, R):
             return route
     if _shared_fits(D, R, dtype):
@@ -355,8 +375,8 @@ def batched_kkt_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _check_tile_list(query, planned: dict, what: str) -> None:
     """Raise unless ``query`` (the library's tile list of a tiled route,
-    the values of each tile in a row: MR0, MC0, MR1, ... or C0, MR0, MC0,
-    C1, ...) reports the tiles of ``planned``, in order."""
+    the values of each tile in a row: MR0, MC0, MR1, ... or BYTES0, C0,
+    MR0, MC0, BYTES1, ...) reports the tiles of ``planned``, in order."""
     tiles = list(planned.values())
     width = len(tiles[0])
     buf = (ctypes.c_int64 * (width * len(tiles) + width))()
@@ -381,9 +401,12 @@ def _check_wide_tiles(lib) -> None:
 
 
 def _check_cluster_tiles(lib) -> None:
-    """Raise unless the library's cluster tiles are ``K3_CLUSTER_TILES``."""
-    _check_tile_list(lib.eqlb_lu_solve_bm_cluster_tiles, K3_CLUSTER_TILES,
-                     "cluster")
+    """Raise unless the library's cluster tiles are ``K3_CLUSTER_TILES``,
+    each as (bytes of a value, C, MR, MC), f32's first."""
+    _check_tile_list(lib.eqlb_lu_solve_bm_cluster_tiles,
+                     {rt: (dtype.itemsize, *t)
+                      for dtype, tiles in K3_CLUSTER_TILES.items()
+                      for rt, t in tiles.items()}, "cluster")
 
 
 # the tiled routes whose tile list was held against the library
@@ -411,6 +434,8 @@ def _solve_route(A: torch.Tensor, b: torch.Tensor,
         route = k3_plan(D, R, A.dtype)
     elif route not in K3_ROUTES:
         raise ValueError(f"unknown K3 route {route!r}; one of {K3_ROUTES}")
+    elif route != "shared" and route not in _k3_routes(A.dtype):
+        raise ValueError(f"K3 route {route!r} does not take {A.dtype}")
     elif not (_shared_fits(D, R, A.dtype) if route == "shared"
               else _tile_covers(route, D, R)):
         raise ValueError(f"K3 route {route!r} does not take D={D}, R={R}")
@@ -435,7 +460,8 @@ def _solve_route(A: torch.Tensor, b: torch.Tensor,
                                      _check_wide_tiles)
     else:
         what, funcs, tiles, check = ("cluster", _FUNCS_BM_CLUSTER,
-                                     K3_CLUSTER_TILES, _check_cluster_tiles)
+                                     K3_CLUSTER_TILES[A.dtype],
+                                     _check_cluster_tiles)
     if what not in _tiles_checked_k3:
         check(_build.library())
     _build.launch("K3", funcs[A.dtype], A.device, *args, *tiles[route],

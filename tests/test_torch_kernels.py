@@ -391,7 +391,8 @@ def test_k3_plan_shared_only_past_wide(dtype):
     for D in [*range(100, 170), 200, 240, 255, 256, 300]:
         for R in (1, 2, 8, 60, 160):
             covered = D <= 16 * wide[0] and D + R <= 16 * wide[1]
-            clusters = [rt for rt, (c, mr, mc) in K3_CLUSTER_TILES.items()
+            clusters = [rt for rt, (c, mr, mc)
+                        in K3_CLUSTER_TILES[dtype].items()
                         if D <= 16 * c * mr and D + R <= 16 * mc]
             fits = D * (D + R) * dtype.itemsize <= SMEM_LIMIT
             if covered:
@@ -427,16 +428,27 @@ def test_k3_plan_takes_kkt_shapes_on_registers(mesh, k):
 
 
 def test_k3_wrapper_routes_on_cpu():
-    """On CPU tensors every route the shape admits is the plain version; a
-    route that cannot take the shape, or an unknown one, raises."""
+    """On CPU tensors every route the shape and dtype admit is the plain
+    version; a route that cannot take the shape or the dtype (a cluster
+    tile of the other dtype), or an unknown one, raises."""
     A, b = _spd_batch_bm((3,), 20, 2, seed=4)
     At, bt = torch.tensor(A), torch.tensor(b)
     before = ops.launches(split=True)["K3"]
     ref = batched_kkt_solve_plain(At, bt)
-    for route in ("reg4x2", "reg8x5", "wide5x5", "wide7x7", "cluster2x5x10",
-                  "cluster4x4x16", "shared"):
+    for route in ("reg4x2", "reg8x5", "wide5x5", "wide7x7", "blocked1x10x10",
+                  "blocked2x6x12", "blocked4x4x16", "shared"):
         torch.testing.assert_close(_solve_route(At, bt, route),
                                    ref, rtol=0, atol=0)
+    A32, b32 = At.float(), bt.float()
+    ref32 = batched_kkt_solve_plain(A32, b32)
+    for route in K3_CLUSTER_TILES[torch.float32]:
+        torch.testing.assert_close(_solve_route(A32, b32, route),
+                                   ref32, rtol=0, atol=0)
+        with pytest.raises(ValueError):  # f32's scalar-step tiles only
+            _solve_route(At, bt, route)
+    for route in K3_CLUSTER_TILES[torch.float64]:
+        with pytest.raises(ValueError):  # f64's blocked tiles only
+            _solve_route(A32, b32, route)
     A, b = _spd_batch_bm((3,), 90, 1, seed=5)  # D = 90, R = 1: wide6x6
     At, bt = torch.tensor(A), torch.tensor(b)
     assert k3_plan(90, 1, torch.float64) == "wide6x6"
@@ -464,8 +476,9 @@ def test_k3_plan_wide8x8_edges(dtype):
         assert k3_plan(D, R, dtype) == "wide8x8", (D, R)
     for D, R in ((111, 1), (110, 2)):
         assert k3_plan(D, R, dtype) == "wide7x7", (D, R)
+    first = next(iter(K3_CLUSTER_TILES[dtype]))  # cluster2x5x10 / blocked1x10x10
     for D, R in ((128, 1), (127, 2), (129, 1), (135, 1), (150, 1)):
-        assert k3_plan(D, R, dtype) == "cluster2x5x10", (D, R)
+        assert k3_plan(D, R, dtype) == first, (D, R)
 
 
 def test_k3_size_rules():
@@ -482,31 +495,51 @@ def test_k3_size_rules():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("D,R,route", [
-    (127, 1, "wide8x8"), (128, 1, "cluster2x5x10"),     # D + R = 128 / 129
-    (126, 2, "wide8x8"), (127, 2, "cluster2x5x10"),
-    (159, 1, "cluster2x5x10"), (160, 1, "cluster4x3x12"),  # 160 / 161
-    (158, 2, "cluster2x5x10"), (159, 2, "cluster4x3x12"),
-    (191, 1, "cluster4x3x12"), (192, 1, "cluster4x4x16"),  # 192 / 193
-    (255, 1, "cluster4x4x16"), (256, 1, None),            # 256 / 257
-    (254, 2, "cluster4x4x16"), (255, 2, None),
-    (130, 1, "cluster2x5x10"), (156, 1, "cluster2x5x10"),  # RT4's KKT sizes
-    (182, 1, "cluster4x3x12"), (208, 1, "cluster4x4x16"),
-    (234, 1, "cluster4x4x16"), (135, 1, "cluster2x5x10"),  # RT3's 9 and 10
-    (150, 1, "cluster2x5x10"),                             # cell patches
+@pytest.mark.parametrize("D,R,routes", [
+    # D + R = 128 / 129, the first cluster tile of each dtype (f64: C = 1)
+    (127, 1, "wide8x8"), (128, 1, ("cluster2x5x10", "blocked1x10x10")),
+    (126, 2, "wide8x8"), (127, 2, ("cluster2x5x10", "blocked1x10x10")),
+    # 160 / 161: f64's C = 1 / C = 2 boundary, f32's C = 2 / C = 4
+    (159, 1, ("cluster2x5x10", "blocked1x10x10")),
+    (160, 1, ("cluster4x3x12", "blocked2x6x12")),
+    (158, 2, ("cluster2x5x10", "blocked1x10x10")),
+    (159, 2, ("cluster4x3x12", "blocked2x6x12")),
+    # 192 / 193: f64's C = 2 / C = 4
+    (191, 1, ("cluster4x3x12", "blocked2x6x12")),
+    (192, 1, ("cluster4x4x16", "blocked4x4x16")),
+    (190, 2, ("cluster4x3x12", "blocked2x6x12")),
+    (191, 2, ("cluster4x4x16", "blocked4x4x16")),
+    (255, 1, ("cluster4x4x16", "blocked4x4x16")), (256, 1, None),  # 256 / 257
+    (254, 2, ("cluster4x4x16", "blocked4x4x16")), (255, 2, None),
+    # RT4's KKT sizes
+    (130, 1, ("cluster2x5x10", "blocked1x10x10")),
+    (156, 1, ("cluster2x5x10", "blocked1x10x10")),
+    (182, 1, ("cluster4x3x12", "blocked2x6x12")),
+    (208, 1, ("cluster4x4x16", "blocked4x4x16")),
+    (234, 1, ("cluster4x4x16", "blocked4x4x16")),
+    # RT3's 9- and 10-cell patches
+    (135, 1, ("cluster2x5x10", "blocked1x10x10")),
+    (150, 1, ("cluster2x5x10", "blocked1x10x10")),
+    # f64's C = 1 tile at R = 4, its last column
+    (156, 4, ("cluster2x5x10", "blocked1x10x10")),
+    (156, 5, ("cluster4x3x12", "blocked2x6x12")),
 ])
-def test_k3_plan_cluster_edges(D, R, route, dtype):
+def test_k3_plan_cluster_edges(D, R, routes, dtype):
     """The cluster route takes every shape past the wide tiles up to
-    D + R = 256, each on the smallest cluster tile that covers it; past
-    that ``k3_admits`` refuses the shape and no tiled route takes it."""
-    if route is None:
+    D + R = 256, each on the smallest cluster tile of its dtype that
+    covers it (f32 the scalar-step kernel's, f64 the blocked kernel's,
+    whose one-block tile ends at D + R = 160); past that ``k3_admits``
+    refuses the shape and no tiled route takes it."""
+    if routes is None:
         assert not k3_admits(D, R)
         with pytest.raises(ValueError):  # nor does [A | b] fit a block
             k3_plan(D, R, dtype)
         return
+    route = routes if isinstance(routes, str) else \
+        routes[dtype == torch.float64]
     assert k3_admits(D, R) and k3_plan(D, R, dtype) == route
-    if route in K3_CLUSTER_TILES:
-        c, mr, mc = K3_CLUSTER_TILES[route]
+    if route in K3_CLUSTER_TILES[dtype]:
+        c, mr, mc = K3_CLUSTER_TILES[dtype][route]
         assert D <= 16 * c * mr and D + R <= 16 * mc
 
 
@@ -571,17 +604,24 @@ class _ClusterTileLib(_TileLib):
         return self.eqlb_lu_solve_bm_reg_tiles(addr, cap)
 
 
+_F32_TILES = [(4, 2, 5, 10), (4, 4, 3, 12), (4, 4, 4, 16)]
+_F64_TILES = [(8, 1, 10, 10), (8, 2, 6, 12), (8, 4, 4, 16)]
+
+
 @pytest.mark.parametrize("tiles,ok", [
-    (list(K3_CLUSTER_TILES.values()), True),
-    ([(2, 5, 10), (4, 3, 12), (4, 4, 16), (8, 4, 16)], False),  # one more
-    ([(2, 5, 10), (4, 4, 16)], False),  # a tile the plan names is not built
-    ([(4, 3, 12), (2, 5, 10), (4, 4, 16)], False),  # another order
-    ([(2, 5, 10), (4, 3, 12), (2, 4, 16)], False),  # another cluster size
-    ([(5, 10), (3, 12), (4, 16)], False),  # pairs, not triples
+    (_F32_TILES + _F64_TILES, True),
+    (_F32_TILES + _F64_TILES + [(8, 8, 4, 16)], False),  # one more
+    (_F32_TILES[:1] + _F32_TILES[2:] + _F64_TILES, False),  # one not built
+    (_F32_TILES[1::-1] + _F32_TILES[2:] + _F64_TILES, False),  # another order
+    (_F32_TILES + _F64_TILES[:2] + [(8, 2, 4, 16)], False),  # another C
+    ([t[1:] for t in _F32_TILES + _F64_TILES], False),  # triples, no dtype
+    (_F32_TILES + [(8, 2, 5, 10)] + _F64_TILES[1:], False),  # f64's C = 2
+    (_F64_TILES + _F32_TILES, False),  # the dtypes swapped
 ])
 def test_k3_cluster_tile_check(tiles, ok):
     """The cluster route's first launch holds the library's built tiles
-    (cluster size, MR, MC) against ``K3_CLUSTER_TILES`` and raises on any
+    (bytes of a value, cluster size, MR, MC: f32's scalar-step tiles, then
+    f64's blocked ones) against ``K3_CLUSTER_TILES`` and raises on any
     difference."""
     if ok:
         _check_cluster_tiles(_ClusterTileLib(tiles))

@@ -216,7 +216,7 @@ def test_kkt_equals_semiexplicit(mesh, k, monkeypatch):
         assert {75, 90, 105, 120} <= set(sizes)
     if k == 4:
         assert 208 in sizes and k3_admits(208, 1)
-        assert k3_plan(208, 1, torch.float64) == "cluster4x4x16"
+        assert k3_plan(208, 1, torch.float64) == "blocked4x4x16"
 
 
 def _lu_pivots(A):

@@ -58,7 +58,7 @@ def test_kkt_rt4_matches_jax(jax_rt4, n_rhs, monkeypatch):
     x = eng.equilibrate(dp[:n_rhs], dr[:n_rhs], fk[:n_rhs], bv[:n_rhs])
     assert sorted(sizes) == sorted(eng.kkt_size(key)[0] for key in eng.buckets)
     assert {130, 156, 182, 208} <= set(sizes)
-    assert all(k3_plan(D, 1, torch.float64) in K3_CLUSTER_TILES
+    assert all(k3_plan(D, 1, torch.float64) in K3_CLUSTER_TILES[torch.float64]
                for D in sizes if D > 127)
     x = x.numpy()
     assert x.shape == x_jax[:n_rhs].shape and np.isfinite(x).all()

@@ -84,7 +84,8 @@ def test_interior_patches_take_the_cluster_route(rt4):
     assert set(interior) == {104, 130, 156, 182, 208}
     for D in interior:
         route = k3_plan(D, 1, torch.float64)
-        assert route in (K3_CLUSTER_TILES if D > 128 else K3_WIDE_TILES), (D, route)
+        assert route in (K3_CLUSTER_TILES[torch.float64] if D > 128
+                         else K3_WIDE_TILES), (D, route)
     assert interior[104] == 1 and sum(interior.values()) == 37
 
 
